@@ -3,30 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the NN velocity spectrum of 10,077,696
-particles on a 512^3 grid, and the NGP spectrum of the same particles,
-through the entry points a user calls (``power_spectrum``, ``deposit``,
-``spectrum_from_field``).  The particles are made on the card from a
-seeded ``torch.Generator`` with the shapes of the JAX package's
-``bench.py`` workload: a 256^3 Gaussian random velocity field sampled by
-a 216^3 lattice jittered by 3 cells.
+Drives the port's paths through the entry points a user calls
+(``power_spectrum``, ``deposit``, ``spectrum_from_field``,
+``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``) on 10,077,696
+particles and a 512^3 grid: the fast NN and the NGP velocity spectra,
+the exact NN spectrum (window sweep), and the index path.  The
+particles are made on the card from a seeded ``torch.Generator`` with
+the shapes of the JAX package's ``bench.py`` workload: a 256^3 Gaussian
+random velocity field sampled by a 216^3 lattice jittered by 3 cells.
 
 Phases (each prints a line; every failed check raises, so the exit code
 is non-zero):
 
 1. device: the card's name and power limit; TF32 matmuls must be off.
-2. build: ``nvcc`` builds both kernels from ``vpower_tpu_torch/csrc``.
+2. build: ``nvcc`` builds the four kernels of ``vpower_tpu_torch/csrc``,
+   one process each, all started together.
 3. K1 (sorted deposit) against its plain version on the path's inputs:
    the seed grid bitwise, the NGP sums within 1e-6 of a float64 plain
    version, two kernel runs bitwise; times of both.
 4. K2 (NN sweep) against its plain version, bitwise, on every call the
-   path makes (128^3 and 256^3 seeded then state-only; 512^3 state-only
-   ``iters=2`` ``payload_out``); times of both.
-5. the slice: launch counts of the main path's run; Nsample exact; Psum
-   against host float64 chains (NGP within 1e-6, NN within 5e-3: the
-   gates of bench.py); NN misassignment on 2^18 random cells against a
-   scipy kd-tree, every miss within a cell diagonal; Parseval.
-6. timing: three timed runs of the NN spectrum after a warm-up.
+   fast path makes (128^3 and 256^3 seeded then state-only; 512^3
+   state-only ``iters=2`` ``payload_out``); times of both.
+5. the fast slice: launch counts of the main path's run; Nsample exact;
+   Psum against host float64 chains (NGP within 1e-6, NN within 5e-3:
+   the gates of bench.py); NN misassignment on 2^18 random cells against
+   a scipy kd-tree, every miss within a cell diagonal; Parseval.
+6. timing: three timed runs of the fast NN spectrum after a warm-up.
+7. exact: ``power_spectrum(method="nn", exact=True)`` at 512^3.  K2's
+   ``d2_out`` calls bitwise against the plain version; the tiers (h1,
+   tiles and rows per pass, the longest span); K4 (window sweep) on every
+   pass of a 128^3 run of the same occupancy bitwise against its plain
+   version, and on 512 random tiles of every 512^3 pass, two kernel runs
+   bitwise equal; launch counts; every cell's distance within 1e-4 cell
+   of the kd-tree's and below its nudged seed bound; Nsample exact, Psum
+   within 1e-5 of the float64 kd-tree chain, Parseval; three timed runs
+   and the stage times.
+8. index path: ``nn_assign`` at 512^3, every K3 call bitwise against its
+   plain version; misassignment on the sampled cells <= 2e-3, every miss
+   within a cell diagonal; ``nn_exact_assign`` exact on those cells.
+9. ``deposit(method="nn", exact=True)`` at 160^3 (``n % 64 != 0``: the
+   ring-refined index route) on 4,096,000 particles: cells farther than
+   the kd-tree's NN by more than 1e-4 cell, at most 1e-5 of the cells.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; refuses to run
@@ -38,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -50,6 +68,9 @@ JITTER = 3.0
 N_CHECK_CELLS = 1 << 18  # NN misassignment sample
 NGP_RTOL = 1e-6          # NGP Psum gate of bench.py:80
 NN_RTOL = 5e-3           # NN Psum gate of bench.py:80-82
+EXACT_RTOL = 1e-5        # exact NN Psum against the float64 kd-tree chain
+EXACT_CELL_TOL = 1e-4    # cells: f32 cell-unit coordinates near 512 round
+                         # at ~3e-5 cell
 # Share of cells whose NN is misassigned.  The descent's own class at
 # this occupancy (0.075 particles per cell) is ~2.3e-2: the finest level
 # pre-merges the rank-0 seeds (nn.py _PREMERGE_MIN), which a CPU run of
@@ -58,6 +79,14 @@ NN_RTOL = 5e-3           # NN Psum gate of bench.py:80-82
 # The run is deterministic; the gate leaves 13% headroom and trips on a
 # dropped finest pass (2.85e-2 in the same CPU measurement).
 MISS_MAX = 2.6e-2
+# The index path (nn_assign) has no pre-merge: the class of the value
+# path without it, 4.5e-4, with room.
+ASSIGN_MISS_MAX = 2e-3
+K4_SAMPLE_TILES = 512
+N_SMALL = 128            # K4's full plain comparison: 128^3 with
+N_SMALL_LATTICE = 54     # 54^3 = 157,464 particles (same occupancy)
+N_RING = 160             # the n % 64 != 0 route, one particle per cell
+RING_MISS_MAX = 1e-5
 
 
 def _fail(msg):
@@ -70,24 +99,57 @@ def _check(cond, msg):
 
 
 class _Capture:
-    """Record the arguments of every call of ``module.name`` while
-    forwarding it, then restore the function."""
+    """Record the arguments (and with ``keep``, the results) of every
+    call of ``module.name`` while forwarding it, then restore it."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name, keep=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls, self.results = [], []
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapper(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.orig(*args, **kwargs)
+            out = self.orig(*args, **kwargs)
+            if self.keep:
+                self.results.append(out)
+            return out
 
         setattr(self.module, self.name, wrapper)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class _Stages:
+    """Synchronized wall time of every call of the given module
+    functions, in call order: ``(name, seconds)``."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.times = torch, targets, []
+
+    def __enter__(self):
+        self.saved = []
+        for module, name in self.targets:
+            orig = getattr(module, name)
+            self.saved.append((module, name, orig))
+
+            def wrapper(*args, _orig=orig, _name=name, **kwargs):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*args, **kwargs)
+                self.torch.cuda.synchronize()
+                self.times.append((_name, time.perf_counter() - t0))
+                return out
+
+            setattr(module, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in reversed(self.saved):
+            setattr(module, name, orig)
 
 
 def _time_ms(torch, fn, reps):
@@ -103,6 +165,18 @@ def _time_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _wall_runs(torch, fn, reps=3):
+    """Sorted wall seconds of ``reps`` synchronized calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)
 
 
 def _host_shell_bin(n, box_size, power=None):
@@ -155,18 +229,37 @@ def _host_ngp_power(pos, vel, mass, n_grid, box_size):
     return _host_power(v.reshape((3,) + (n_grid,) * 3), box_size)
 
 
-def _host_nn_power(tree, vel, n_grid, box_size, slab=32):
-    """float64 power grid of the exact NN velocity field: every cell
-    centre queried in a periodic kd-tree (the recipe of
-    benchmarks/make_golden.py), a slab of x at a time."""
+def _host_nn_query(tree, n_grid, box_size, slab=32):
+    """Exact NN of every cell centre in a kd-tree, a slab of x at a time
+    (the recipe of benchmarks/make_golden.py): ``(distance, index)``,
+    flat in cell order."""
     ax = (np.arange(n_grid) + 0.5) * (box_size / n_grid)
-    v = np.empty((3, n_grid**3))
+    dist = np.empty(n_grid**3)
+    idx = np.empty(n_grid**3, np.int64)
     for x0 in range(0, n_grid, slab):
         q = np.stack(np.meshgrid(ax[x0:x0 + slab], ax, ax, indexing="ij"),
                      axis=-1).reshape(-1, 3)
-        _, idx = tree.query(q, k=1, workers=-1)
-        v[:, x0 * n_grid**2:(x0 + slab) * n_grid**2] = vel[idx].T
-    return _host_power(v.reshape((3,) + (n_grid,) * 3), box_size)
+        sl = slice(x0 * n_grid**2, (x0 + slab) * n_grid**2)
+        dist[sl], idx[sl] = tree.query(q, k=1, workers=-1)
+    return dist, idx
+
+
+def _centre_dist(chosen, cells, n_grid, box_size):
+    """Periodic distance from each flat cell's centre to ``chosen``."""
+    cell = box_size / n_grid
+    ijk = np.stack(np.unravel_index(cells, (n_grid,) * 3), axis=1)
+    dd = chosen - (ijk + 0.5) * cell
+    dd -= box_size * np.round(dd / box_size)
+    return np.sqrt((dd**2).sum(axis=1))
+
+
+def _build_all(names):
+    """Build the kernels in parallel, one nvcc each."""
+    from vpower_tpu_torch import _build
+
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(_build.load, names))
+    return _build.BUILD_LOG
 
 
 def main():
@@ -179,9 +272,9 @@ def main():
               "CUDA card and never falls back to the CPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import vpower_tpu_torch as vt
-    from vpower_tpu_torch import _build
     from vpower_tpu_torch.deposit import nn as nn_mod
-    from vpower_tpu_torch.deposit import nn_sweep, sorted_scatter
+    from vpower_tpu_torch.deposit import (nn_index_sweep, nn_sweep,
+                                          nn_window, sorted_scatter)
     from vpower_tpu_torch.deposit.scatter import sort_by_cell
     from vpower_tpu_torch.spectrum.power import (hermitian_weights,
                                                  vector_power_rfft)
@@ -201,11 +294,11 @@ def main():
 
     # ---- 2. build --------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("sorted_scatter", "nn_sweep"):
-        _build.load(name)
-    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for name, log in _build.BUILD_LOG.items():
+    names = ("sorted_scatter", "nn_sweep", "nn_index_sweep", "window_sweep")
+    logs = _build_all(names)
+    print(f"[build] {len(names)} kernels in parallel in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
@@ -284,34 +377,39 @@ def main():
 
     # ---- 4. K2 against its plain version --------------------------
     def k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
-                 payload_out=False, iters=1):
+                 payload_out=False, d2_out=False, iters=1):
         cur = state
         for it in range(iters):
+            last = payload_out and it == iters - 1
             cur = nn_sweep.sweep_vals_plain(
-                cur, seeds, box_size, periodic, has_occ,
-                payload_out and it == iters - 1)
+                cur, seeds, box_size, periodic, has_occ, last,
+                d2_out and last)
         return cur
 
-    k2_err, k2_ms, k2_plain_ms = 0.0, None, None
-    for args, kwargs in k2_calls.calls:
-        state, seeds = args[0], args[1]
-        out = nn_sweep.sweep_tiles_vals(*args, **kwargs)
-        plain = k2_plain(*args, **kwargs)
-        torch.cuda.synchronize()
-        same = out.shape == plain.shape and torch.equal(out, plain)
-        if out.shape == plain.shape:
-            k2_err = max(k2_err, float((out - plain).abs().max()))
-        mode = (f"n={state.shape[1]} C={state.shape[0]} "
-                f"k={0 if seeds is None else seeds.shape[0] // state.shape[0]}"
-                f" {kwargs}")
-        _check(same, f"K2 differs from its plain version at {mode}")
-        ms = _time_ms(torch, lambda: nn_sweep.sweep_tiles_vals(*args, **kwargs),
-                      3)
-        plain_ms = _time_ms(torch, lambda: k2_plain(*args, **kwargs), 1)
-        print(f"[K2] {mode}: bitwise equal to plain; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms", flush=True)
-        k2_ms, k2_plain_ms = ms, plain_ms  # the last call: 512^3 payload
-        del out, plain
+    k2 = {"err": 0.0, "ms": None, "plain_ms": None}
+
+    def check_k2(calls):
+        for args, kwargs in calls:
+            state, seeds = args[0], args[1]
+            out = nn_sweep.sweep_tiles_vals(*args, **kwargs)
+            plain = k2_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            same = out.shape == plain.shape and torch.equal(out, plain)
+            if out.shape == plain.shape:
+                k2["err"] = max(k2["err"], float((out - plain).abs().max()))
+            k = 0 if seeds is None else seeds.shape[0] // state.shape[0]
+            mode = f"n={state.shape[1]} C={state.shape[0]} k={k} {kwargs}"
+            _check(same, f"K2 differs from its plain version at {mode}")
+            ms = _time_ms(torch, lambda: nn_sweep.sweep_tiles_vals(
+                *args, **kwargs), 3)
+            plain_ms = _time_ms(torch, lambda: k2_plain(*args, **kwargs), 1)
+            print(f"[K2] {mode}: bitwise equal to plain; kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms", flush=True)
+            del out, plain
+            yield ms, plain_ms
+
+    for ms, plain_ms in check_k2(k2_calls.calls):
+        k2["ms"], k2["plain_ms"] = ms, plain_ms  # last: 512^3 payload
     del k2_calls
     torch.cuda.empty_cache()
 
@@ -352,15 +450,22 @@ def main():
     vel_h = particles.vel.double().cpu().numpy()
     mass_h = particles.mass.double().cpu().numpy()
     tree = cKDTree(pos_h, boxsize=BOX)
-    errs = {}
-    for tag, spec, power in (
-            ("NGP", spec_ngp, _host_ngp_power(pos_h, vel_h, mass_h, N_GRID,
-                                              BOX)),
-            ("NN", spec_nn, _host_nn_power(tree, vel_h, N_GRID, BOX))):
-        psum_host, _ = _host_shell_bin(N_GRID, BOX, power)
+    # exact NN of every cell centre: the exact path's reference too
+    d_host, i_host = _host_nn_query(tree, N_GRID, BOX)
+    v_host = vel_h[i_host].T.reshape((3,) + (N_GRID,) * 3)
+    del i_host
+    psum_ngp, _ = _host_shell_bin(
+        N_GRID, BOX, _host_ngp_power(pos_h, vel_h, mass_h, N_GRID, BOX))
+    psum_nn, _ = _host_shell_bin(N_GRID, BOX, _host_power(v_host, BOX))
+    del v_host
+
+    def psum_err(spec, psum_host):
         sel = psum_host > 0
-        errs[tag] = float(np.max(np.abs(spec.Psum[sel] - psum_host[sel])
-                                 / psum_host[sel]))
+        return float(np.max(np.abs(spec.Psum[sel] - psum_host[sel])
+                            / psum_host[sel]))
+
+    errs = {"NGP": psum_err(spec_ngp, psum_ngp), "NN": psum_err(spec_nn,
+                                                                psum_nn)}
     print(f"[slice] Nsample (NN, NGP) bit-exact vs host histogram; Psum max "
           f"rel err vs host float64 chains: NGP {errs['NGP']:.3e} (gate "
           f"{NGP_RTOL}), NN {errs['NN']:.3e} (gate {NN_RTOL}); host chains "
@@ -380,12 +485,10 @@ def main():
     v_h = v_nn.reshape(3, -1)[:, cells_t].double().cpu().numpy().T
     del chosen
     cell = BOX / N_GRID
-    ijk = np.stack(np.unravel_index(cells, (N_GRID,) * 3), axis=1)
-    centers = (ijk + 0.5) * cell
-    d_true, idx = tree.query(centers, k=1, workers=-1)
-    dd = chosen_h - centers
-    dd -= BOX * np.round(dd / BOX)
-    excess = np.sqrt((dd**2).sum(axis=1)) - d_true
+    d_true, idx = tree.query(
+        (np.stack(np.unravel_index(cells, (N_GRID,) * 3), axis=1) + 0.5)
+        * cell, k=1, workers=-1)
+    excess = _centre_dist(chosen_h, cells, N_GRID, BOX) - d_true
     miss = excess > 1e-6 * cell
     miss_frac = float(miss.mean())
     max_excess = float(excess.max()) / cell
@@ -402,7 +505,8 @@ def main():
     _check(v_agree >= 0.999, "NN velocities off the kd-tree particle's")
 
     w = hermitian_weights(N_GRID, device=dev).double()
-    for tag, v in (("NN", v_nn), ("NGP", field_ngp.velocity)):
+
+    def parseval(tag, v):
         lhs = float((vector_power_rfft(v, BOX).double() * w).sum()) \
             * (2 * np.pi / BOX) ** 3
         rhs = 0.5 * float((v.double() ** 2).sum(dim=0).mean())
@@ -410,21 +514,313 @@ def main():
         print(f"[slice] Parseval {tag}: sum P (2pi/L)^3 = {lhs:.9e}, "
               f"0.5 <|v|^2> = {rhs:.9e}, rel {rel:.2e}", flush=True)
         _check(rel < 1e-5, f"{tag} Parseval off by {rel:.2e}")
+
+    parseval("NN", v_nn)
+    parseval("NGP", field_ngp.velocity)
     del v_nn, field_ngp
 
     # ---- 6. timing -------------------------------------------------
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vt.power_spectrum(particles, N_GRID, method="nn")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    times.sort()
+    times = _wall_runs(torch, lambda: vt.power_spectrum(particles, N_GRID,
+                                                        method="nn"))
     print(f"[timing] NN spectrum {N_GRID}^3, {n_p} particles, 3 runs after "
           f"warm-up: min {times[0]:.4f} s, median {times[1]:.4f} s, spread "
           f"{times[2] - times[0]:.4f} s on {smi}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 7. exact NN spectrum (window sweep) ------------------------
+    t0 = time.perf_counter()
+    with _Capture(nn_window, "window_pass", keep=True) as k4_calls, \
+            _Capture(nn_window, "_choose_h1", keep=True) as h1_calls, \
+            _Capture(nn_window, "_tier2_build") as t2_calls, \
+            _Capture(nn_window, "_passc_build") as pc_calls, \
+            _Capture(nn_window, "_to_cells", keep=True) as tc_calls, \
+            _Capture(nn_mod, "sweep_tiles_vals") as k2_calls:
+        spec_x = vt.power_spectrum(particles, N_GRID, method="nn", exact=True)
+    torch.cuda.synchronize()
+    print(f"[exact] warm-up {time.perf_counter() - t0:.2f} s; "
+          f"{len(k2_calls.calls)} K2 and {len(k4_calls.calls)} K4 wrapper "
+          f"calls recorded", flush=True)
+    d2_calls = [c for c in k2_calls.calls if c[1].get("d2_out")]
+    _check(len(d2_calls) >= 1, "the exact path made no K2 d2_out call")
+    for _ in check_k2(d2_calls):
+        pass
+    del k2_calls, d2_calls
+
+    # the tiers, from the recorded passes
+    h1 = h1_calls.results[0]
+    names = ["tier 1"] + ["tier 2"] * len(t2_calls.calls) \
+        + ["pass C"] * len(pc_calls.calls)
+    _check(len(names) == len(k4_calls.calls), "one K4 pass per tier")
+    tiers = []
+    for name, ((s0, s1, rows, _), kw) in zip(names, k4_calls.calls):
+        span = (s1 - s0).long()
+        tiers.append(f"{name} (wrap={kw['wrap']}): {int((span > 0).sum())} "
+                     f"tiles, {int(span.sum())} rows of {rows.shape[1]}, "
+                     f"longest span {int(span.max())}")
+    print(f"[exact] h1 = {h1}; {'; '.join(tiers)}; no pass for "
+          + (", ".join(t for t in ("tier 2", "pass C") if t not in names)
+             or "none"), flush=True)
+    del t2_calls, pc_calls
+
+    # K4 on 512 random tiles of every 512^3 pass; two kernel runs equal
+    zc = nn_window._zc(N_GRID)
+    nt = nn_window._ntiles(N_GRID, zc)
+    k4 = {"err": 0.0}
+    tile_rng = torch.Generator(device=dev).manual_seed(SEED)
+    n_tiles = nt[0] * nt[1] * nt[2]
+    for i, ((s0, s1, rows, state), kw) in enumerate(k4_calls.calls):
+        out = nn_window.window_pass(s0, s1, rows, state, **kw)
+        _check(torch.equal(out, k4_calls.results[i]),
+               f"K4 pass {i} differs between two kernel runs")
+        tiles = torch.randperm(n_tiles, generator=tile_rng,
+                               device=dev)[:K4_SAMPLE_TILES]
+        t1 = time.perf_counter()
+        plain = nn_window.window_pass_plain(s0, s1, rows, state, tiles=tiles,
+                                            **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        picked = torch.zeros(n_tiles, device=dev)
+        picked[tiles] = 1.0
+        mask = nn_window._grid_major(
+            picked.reshape(1, -1, 1, 1, 1).expand(
+                1, n_tiles, nn_window.TILE, nn_window.TILE, zc).contiguous(),
+            nt, zc)[0] > 0
+        same = torch.equal(out[:, mask], plain[:, mask])
+        k4["err"] = max(k4["err"], float((out[:, mask] - plain[:, mask])
+                                         .abs().max()))
+        _check(same, f"K4 pass {i} differs from its plain version on the "
+               f"sampled tiles")
+        ms = _time_ms(torch, lambda: nn_window.window_pass(
+            s0, s1, rows, state, **kw), 3)
+        print(f"[K4] {N_GRID}^3 pass {i} {kw}: {K4_SAMPLE_TILES} random tiles "
+              f"bitwise equal to plain, two kernel runs bitwise equal; "
+              f"kernel (whole pass) {ms:.3f} ms, plain on the "
+              f"{K4_SAMPLE_TILES} tiles {plain_s * 1e3:.1f} ms", flush=True)
+        del out, plain, mask
+
+    # exactness at every cell: the last pass's d2 against the kd-tree
+    # distance, and below the nudged seed bound of the first pass
+    bound = k4_calls.calls[0][0][3][-1]
+    d2_c = k4_calls.results[-1][-1]
+    n_kept = int((d2_c >= bound).sum())
+    # the JAX package's nudge, d2 (1 + 1e-5) + 1e-6: the cells whose true
+    # NN (the kernel's d2 here) would not beat it keep the zero payload
+    seed_c = tc_calls.results[0][1]
+    n_jax = int((d2_c >= seed_c * nn_window._f32(1 + 1e-5) + 1e-6).sum())
+    d_got = torch.sqrt(d2_c.double()).cpu().numpy().ravel()
+    gap = np.abs(d_got - d_host * N_GRID)
+    n_far = int((gap > EXACT_CELL_TOL).sum())
+    print(f"[exact] {n_kept} cells kept their nudged seed bound (the JAX "
+          f"package's nudge would leave {n_jax} with the zero payload); "
+          f"|distance - kd-tree distance| max {gap.max():.3e} cell over "
+          f"{N_GRID**3} cells, {n_far} beyond {EXACT_CELL_TOL}", flush=True)
+    _check(n_kept == 0, f"{n_kept} cells kept their seed bound (no "
+           f"candidate beat it): their payload is zero")
+    _check(n_far == 0, f"{n_far} cells off the kd-tree distance")
+    del k4_calls, h1_calls, tc_calls, bound, d2_c, seed_c, d_got, gap
+    torch.cuda.empty_cache()
+
+    # K4 on every pass of a 128^3 run of the same occupancy: the whole
+    # pass bitwise against the plain version
+    pos_s = vt.grid_positions(N_SMALL_LATTICE, BOX, generator=gen,
+                              jitter=JITTER)
+    vals_s = torch.randn((pos_s.shape[0], 4), generator=gen, device=dev)
+    with _Capture(nn_window, "window_pass") as k4s_calls:
+        vt.nn_window_gather(pos_s, vals_s, N_SMALL, BOX)
+    for i, ((s0, s1, rows, state), kw) in enumerate(k4s_calls.calls):
+        out = nn_window.window_pass(s0, s1, rows, state, **kw)
+        plain = nn_window.window_pass_plain(s0, s1, rows, state, **kw)
+        torch.cuda.synchronize()
+        k4["err"] = max(k4["err"], float((out - plain).abs().max()))
+        _check(torch.equal(out, plain), f"K4 128^3 pass {i} differs from its "
+               f"plain version")
+        ms = _time_ms(torch, lambda: nn_window.window_pass(
+            s0, s1, rows, state, **kw), 3)
+        plain_ms = _time_ms(torch, lambda: nn_window.window_pass_plain(
+            s0, s1, rows, state, **kw), 1)
+        if i == 0:
+            k4["ms"], k4["plain_ms"] = ms, plain_ms
+        print(f"[K4] {N_SMALL}^3 pass {i} {kw}, "
+              f"{N_SMALL_LATTICE**3} particles: bitwise equal to plain; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        del out, plain
+    del k4s_calls, pos_s, vals_s
+
+    # the main path's run, counts zeroed
+    for mod in (sorted_scatter, nn_sweep, nn_window, nn_index_sweep):
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    spec_x2 = vt.power_spectrum(particles, N_GRID, method="nn", exact=True)
+    torch.cuda.synchronize()
+    x_launches = {"sorted_scatter": sorted_scatter.LAUNCHES,
+                  "nn_sweep": nn_sweep.LAUNCHES,
+                  "window_sweep": nn_window.LAUNCHES}
+    print(f"[exact] run launches: K1 {x_launches['sorted_scatter']}, K2 "
+          f"{x_launches['nn_sweep']}, K4 {x_launches['window_sweep']}",
+          flush=True)
+    _check(x_launches["sorted_scatter"] >= 1, "exact run launched no K1")
+    _check(x_launches["nn_sweep"] >= 1, "exact run launched no K2")
+    _check(x_launches["window_sweep"] >= 1, "exact run launched no K4")
+    _check(np.array_equal(spec_x.Psum, spec_x2.Psum),
+           "two exact runs give different spectra")
+    _check(np.isfinite(spec_x.Psum).all() and len(spec_x) == N_GRID // 2,
+           "exact spectrum not finite or wrong length")
+    _check(np.array_equal(spec_x.Nsample, nsamp_host.astype(np.float64)),
+           "exact Nsample differs from the host histogram")
+    errs["exact"] = psum_err(spec_x, psum_nn)
+    print(f"[exact] Nsample bit-exact; Psum max rel err vs the float64 "
+          f"kd-tree chain {errs['exact']:.3e} (gate {EXACT_RTOL})",
+          flush=True)
+    _check(errs["exact"] <= EXACT_RTOL,
+           f"exact Psum rel err {errs['exact']:.3e}")
+    del spec_x2
+
+    # stage times (a separate run, synchronized around each call)
+    targets = [(nn_mod, "nn_gather_grid")] + [
+        (nn_window, n) for n in ("_h_required", "_tier1_count",
+                                 "_tier1_build", "_tier2_near",
+                                 "_compact_mask", "_tier2_build",
+                                 "_passc_build", "window_pass")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages(torch, targets) as st:
+        field_x = vt.deposit(particles, N_GRID, method="nn", exact=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vt.spectrum_from_field(field_x, quantity="velocity")
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    spec_s = time.perf_counter() - t1
+    descent = sum(s for n, s in st.times if n == "nn_gather_grid")
+    builds = sum(s for n, s in st.times
+                 if n not in ("nn_gather_grid", "window_pass"))
+    passes = [s for n, s in st.times if n == "window_pass"]
+    print(f"[exact] stages (synchronized, {total:.4f} s in all): d2-only "
+          f"descent {descent:.4f} s; halo + tier builds {builds:.4f} s; K4 "
+          f"passes " + ", ".join(f"{s:.4f}" for s in passes)
+          + f" s; spectrum {spec_s:.4f} s; rest "
+          f"{total - descent - builds - sum(passes) - spec_s:.4f} s",
+          flush=True)
+    parseval("exact NN", field_x.velocity)
+    del field_x
+
+    torch.cuda.reset_peak_memory_stats()
+    times = _wall_runs(torch, lambda: vt.power_spectrum(
+        particles, N_GRID, method="nn", exact=True))
+    print(f"[timing] exact NN spectrum {N_GRID}^3, {n_p} particles, 3 runs "
+          f"after warm-up: min {times[0]:.4f} s, median {times[1]:.4f} s, "
+          f"spread {times[2] - times[0]:.4f} s on {smi}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    _, d2_wg, occ_wg = vt.nn_window_gather(
+        particles.pos, particles.density_velocity_vector(), N_GRID, BOX)
+    gap = np.abs(torch.sqrt(d2_wg.double()).cpu().numpy().ravel() - d_host)
+    print(f"[exact] nn_window_gather: occ {float(occ_wg)}, |sqrt(d2) - "
+          f"kd-tree distance| max {gap.max() * N_GRID:.3e} cell", flush=True)
+    _check(float(occ_wg) == 1.0, "nn_window_gather occupancy")
+    _check(gap.max() * N_GRID <= EXACT_CELL_TOL,
+           "nn_window_gather d2 off the kd-tree distance")
+    del d2_wg, gap, d_host
+    torch.cuda.empty_cache()
+
+    # ---- 8. index path (K3) ----------------------------------------
+    t0 = time.perf_counter()
+    with _Capture(nn_mod, "sweep_tiles") as k3_calls:
+        vt.nn_assign(particles.pos, N_GRID, BOX)
+    torch.cuda.synchronize()
+    print(f"[index] warm-up {time.perf_counter() - t0:.2f} s; "
+          f"{len(k3_calls.calls)} K3 wrapper calls recorded", flush=True)
+    k3 = {"err": 0.0}
+    for args, kwargs in k3_calls.calls:
+        out = nn_index_sweep.sweep_tiles(*args, **kwargs)
+        out2 = nn_index_sweep.sweep_tiles(*args, **kwargs)
+        plain = nn_index_sweep.sweep_index_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        n, k = args[0].shape[0], 0 if args[2] is None else args[2].shape[0]
+        for a, b, c in zip(out, out2, plain):
+            _check(torch.equal(a, c), f"K3 differs from its plain version "
+                   f"at n={n} k={k}")
+            _check(torch.equal(a, b), f"K3 differs between runs at n={n}")
+            k3["err"] = max(k3["err"], float((a - c).abs().max()))
+        ms = _time_ms(torch, lambda: nn_index_sweep.sweep_tiles(
+            *args, **kwargs), 3)
+        plain_ms = _time_ms(torch, lambda: nn_index_sweep.sweep_index_plain(
+            *args, **kwargs), 1)
+        if n == N_GRID and k > 0:
+            k3["ms"], k3["plain_ms"] = ms, plain_ms
+        print(f"[K3] n={n} k={k}: idx, pos and d2 bitwise equal to plain, two "
+              f"runs bitwise equal; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        del out, out2, plain
+    del k3_calls
+    torch.cuda.empty_cache()
+
+    for mod in (sorted_scatter, nn_sweep, nn_window, nn_index_sweep):
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    idx_a = vt.nn_assign(particles.pos, N_GRID, BOX)
+    torch.cuda.synchronize()
+    i_launches = {"sorted_scatter": sorted_scatter.LAUNCHES,
+                  "nn_index_sweep": nn_index_sweep.LAUNCHES}
+    print(f"[index] nn_assign run launches: K1 "
+          f"{i_launches['sorted_scatter']}, K3 "
+          f"{i_launches['nn_index_sweep']}", flush=True)
+    _check(i_launches["sorted_scatter"] >= 1, "nn_assign launched no K1")
+    _check(i_launches["nn_index_sweep"] >= 6, "nn_assign launched fewer "
+           "than 6 K3")
+    idx_h = idx_a.reshape(-1)[cells_t].cpu().numpy()
+    _check(bool((idx_h >= 0).all()), "nn_assign left a cell unassigned")
+    excess = _centre_dist(pos_h[idx_h], cells, N_GRID, BOX) - d_true
+    miss = excess > 1e-6 * cell
+    print(f"[index] nn_assign misassignment on {N_CHECK_CELLS} cells vs "
+          f"kd-tree: {miss.mean():.3e} (gate {ASSIGN_MISS_MAX}), max excess "
+          f"{excess.max() / cell:.3f} cell", flush=True)
+    _check(miss.mean() <= ASSIGN_MISS_MAX,
+           f"nn_assign misassignment {miss.mean():.3e}")
+    _check(excess.max() / cell < math.sqrt(3.0),
+           "nn_assign miss beyond a cell diagonal")
+    del idx_a
+
+    idx_x = vt.nn_exact_assign(particles.pos, N_GRID, BOX)
+    idx_h = idx_x.reshape(-1)[cells_t].cpu().numpy()
+    excess = _centre_dist(pos_h[idx_h], cells, N_GRID, BOX) - d_true
+    print(f"[index] nn_exact_assign on {N_CHECK_CELLS} cells: max excess "
+          f"over the kd-tree distance {excess.max() / cell:.3e} cell (gate "
+          f"{EXACT_CELL_TOL})", flush=True)
+    _check(bool((idx_h >= 0).all()) and excess.max() / cell
+           <= EXACT_CELL_TOL, "nn_exact_assign off the kd-tree")
+    del idx_x, tree
+    torch.cuda.empty_cache()
+
+    # ---- 9. exact deposit where n % 64 != 0 (ring refinement) ------
+    t0 = time.perf_counter()
+    p160 = vt.synthetic_particles(gen, N_RING, BOX, jitter=JITTER)
+    for mod in (sorted_scatter, nn_index_sweep):
+        mod.LAUNCHES = 0
+    with _Capture(nn_mod, "nn_assign", keep=True) as ring:
+        field_r = vt.deposit(p160, N_RING, method="nn", exact=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    _check(sorted_scatter.LAUNCHES >= 1, "160^3 run launched no K1")
+    idx_r = ring.results[0].reshape(-1)
+    _check(torch.equal(field_r.velocity.reshape(3, -1),
+                       p160.vel[idx_r.long()].T),
+           "160^3 field is not the assigned particles' velocity")
+    pos_r = p160.pos.double().cpu().numpy() % BOX
+    d_r, _ = _host_nn_query(cKDTree(pos_r, boxsize=BOX), N_RING, BOX)
+    idx_rh = idx_r.cpu().numpy()
+    excess = _centre_dist(pos_r[idx_rh], np.arange(N_RING**3), N_RING,
+                          BOX) - d_r
+    n_off = int((excess > EXACT_CELL_TOL * BOX / N_RING).sum())
+    print(f"[ring] deposit(exact=True) at {N_RING}^3, {len(p160)} particles "
+          f"({run_s:.2f} s with the particles): {n_off} cells farther than "
+          f"the kd-tree NN by > {EXACT_CELL_TOL} cell (gate "
+          f"{RING_MISS_MAX} of {N_RING**3}); launches K1 "
+          f"{sorted_scatter.LAUNCHES}, K3 {nn_index_sweep.LAUNCHES}",
+          flush=True)
+    _check(n_off <= RING_MISS_MAX * N_RING**3,
+           f"{n_off} cells of the 160^3 ring route off the kd-tree")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [
@@ -436,8 +832,18 @@ def main():
         {"name": "nn_sweep", "route": "cuda",
          "source": "vpower_tpu_torch/csrc/nn_sweep.cu",
          "replaces": "vpower_tpu/deposit/nn_pallas.py:608",
-         "launches": launches["nn_sweep"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches["nn_sweep"], "max_abs_err": k2["err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "nn_index_sweep", "route": "cuda",
+         "source": "vpower_tpu_torch/csrc/nn_index_sweep.cu",
+         "replaces": "vpower_tpu/deposit/nn_pallas.py:494",
+         "launches": i_launches["nn_index_sweep"], "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+        {"name": "window_sweep", "route": "cuda",
+         "source": "vpower_tpu_torch/csrc/window_sweep.cu",
+         "replaces": "vpower_tpu/deposit/nn_window.py:449",
+         "launches": x_launches["window_sweep"], "max_abs_err": k4["err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -122,6 +122,7 @@ def test_synthetic_particles_shapes():
 
 def test_import_does_not_import_jax():
     code = ("import sys, vpower_tpu_torch; "
+            "from vpower_tpu_torch.deposit import nn_index_sweep, nn_window; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -133,7 +134,9 @@ def test_import_does_not_import_jax():
 def test_kernel_wrappers_refuse_other_devices():
     """The plain versions run only because a tensor lies on the CPU: any
     other device launches the kernel or raises, never falls back."""
+    from vpower_tpu_torch.deposit.nn_index_sweep import sweep_tiles
     from vpower_tpu_torch.deposit.nn_sweep import sweep_tiles_vals
+    from vpower_tpu_torch.deposit.nn_window import window_pass
     from vpower_tpu_torch.deposit.sorted_scatter import deposit_sorted
 
     sids = torch.zeros(4, dtype=torch.int32, device="meta")
@@ -141,3 +144,11 @@ def test_kernel_wrappers_refuse_other_devices():
         deposit_sorted(sids, torch.zeros(4, 2, device="meta"), 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         sweep_tiles_vals(torch.zeros(4, 4, 4, 4, device="meta"), None, 1.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sweep_tiles(torch.zeros(4, 4, 4, dtype=torch.int32, device="meta"),
+                    torch.zeros(3, 4, 4, 4, device="meta"), None, None, 1.0)
+    s = torch.zeros(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        window_pass(s, s, torch.zeros(8, 512, device="meta"),
+                    torch.zeros(1, 64, 64, 64, device="meta"), n_grid=64,
+                    zc=64, n_pay=0, wrap=True)

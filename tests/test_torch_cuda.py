@@ -7,16 +7,17 @@ repository's ``tests/conftest.py`` (it configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Both kernels sum and compare in the same order and with the same float
-arithmetic as their plain versions on the CPU, so results must be equal
-bit for bit.
+Every kernel sums and compares in the same order and with the same
+float arithmetic as its plain version on the CPU, so results must be
+equal bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from vpower_tpu_torch.deposit import nn as tnn
-from vpower_tpu_torch.deposit import nn_sweep, sorted_scatter
+from vpower_tpu_torch.deposit import (nn_index_sweep, nn_sweep, nn_window,
+                                      sorted_scatter)
 from vpower_tpu_torch.run import pipeline as tpipe
 from vpower_tpu_torch.core.particles import Particles
 
@@ -89,6 +90,117 @@ def test_nn_sweep_kernel_matches_plain_state_only(cuda, n_pay):
     ref = nn_sweep.sweep_tiles_vals(state, None, box, **kw)
     got = nn_sweep.sweep_tiles_vals(state.to(cuda), None, box, **kw)
     assert got.shape == (n_pay, n, n, n)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("n_pay", [0, 1])
+def test_nn_sweep_kernel_d2_out_matches_plain(cuda, n_pay):
+    """``d2_out``: the payload channels (none on the exact path's d2-only
+    descent) and the best squared distance of the last pass."""
+    n, box = 24, 1.0
+    state, _ = _seeded_inputs(n, box, seed=50 + n_pay, n_pay=max(n_pay, 1),
+                              k=1)
+    state = state[:3 + n_pay].contiguous()
+    kw = dict(periodic=True, has_occ=False, payload_out=True, d2_out=True,
+              iters=2)
+    ref = nn_sweep.sweep_tiles_vals(state, None, box, **kw)
+    got = nn_sweep.sweep_tiles_vals(state.to(cuda), None, box, **kw)
+    assert got.shape == (n_pay + 1, n, n, n)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _index_inputs(n, box, seed, k):
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy((rng.random((n**3 // 3, 3)) * box)
+                           .astype(np.float32))
+    si, sp = tnn._seed_grids(pos, n, box, k)
+    state_idx = si[0].clone()
+    state_pos = sp[0].clone()
+    return (state_idx, state_pos, si.contiguous(),
+            sp.reshape(3 * k, n, n, n).contiguous())
+
+
+@pytest.mark.parametrize("n,box,periodic,seeded", [
+    (16, 1.0, True, True), (24, 2.3, False, True), (16, 1.0, True, False),
+    (20, 3.7, False, False)])
+def test_nn_index_sweep_kernel_matches_plain(cuda, n, box, periodic, seeded):
+    si, sp, ki, kp = _index_inputs(n, box, seed=n + seeded, k=2)
+    if not seeded:
+        ki = kp = None
+    ref = nn_index_sweep.sweep_tiles(si, sp, ki, kp, box, periodic=periodic)
+    before = nn_index_sweep.LAUNCHES
+    dev = [None if t is None else t.to(cuda) for t in (si, sp, ki, kp)]
+    got = nn_index_sweep.sweep_tiles(*dev, box, periodic=periodic)
+    torch.cuda.synchronize()
+    assert nn_index_sweep.LAUNCHES == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def _window_inputs(n, n_pay, wrap, seed, per_cell):
+    """A tier-1 pass of the port's own builders (halo 4) over uniform
+    particles, ``per_cell`` of them per cell."""
+    rng = np.random.default_rng(seed)
+    zc = nn_window._zc(n)
+    pos_c = torch.from_numpy((rng.random((int(per_cell * n**3), 3)) * n)
+                             .astype(np.float32))
+    vals = torch.from_numpy(rng.standard_normal((pos_c.shape[0], n_pay))
+                            .astype(np.float32))
+    n_rows = nn_window._round_rows(
+        nn_window._tier1_count(pos_c, n, zc, 4, True))
+    rows, s0, s1 = nn_window._tier1_build(pos_c, vals, n, zc, 4, True, n_rows,
+                                          apply_shift=not wrap)
+    d2 = torch.from_numpy((rng.random((n,) * 3) * 40).astype(np.float32))
+    state = torch.cat([torch.zeros((n_pay,) + (n,) * 3), d2[None]])
+    return s0, s1, rows, state, zc
+
+
+@pytest.mark.parametrize("n,n_pay,wrap,per_cell", [
+    (64, 0, True, 0.01), (64, 3, False, 0.01), (128, 2, True, 0.06),
+    (192, 5, False, 0.01)])
+def test_window_sweep_kernel_matches_plain(cuda, n, n_pay, wrap, per_cell):
+    """At 0.06 particles per cell the spans pass one 512-row chunk."""
+    s0, s1, rows, state, zc = _window_inputs(n, n_pay, wrap, n + n_pay,
+                                             per_cell)
+    if per_cell > 0.05:
+        assert int((s1 - s0).max()) > 512
+    kw = dict(n_grid=n, zc=zc, n_pay=n_pay, wrap=wrap)
+    ref = nn_window.window_pass(s0, s1, rows, state, **kw)
+    before = nn_window.LAUNCHES
+    got = nn_window.window_pass(s0.to(cuda), s1.to(cuda), rows.to(cuda),
+                                state.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert nn_window.LAUNCHES == before + 1
+    assert (ref[n_pay] < state[n_pay]).any()  # candidates did win
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_exact_paths_on_card_match_cpu(cuda, periodic):
+    """The exact window path (tier 1, tier 2 and pass C on clustered
+    particles) and the index path at 128^3 (K3) on the card equal the
+    CPU runs of the same code."""
+    rng = np.random.default_rng(9)
+    parts = [rng.random((1, 3)) + 0.008 * rng.standard_normal((1500, 3))
+             for _ in range(3)] + [rng.random((15, 3))]
+    pos = torch.from_numpy((np.concatenate(parts) % 1.0).astype(np.float32))
+    vals = torch.from_numpy(rng.standard_normal((pos.shape[0], 2))
+                            .astype(np.float32))
+    ref = nn_window.nn_window_gather(pos, vals, 64, 1.0, periodic=periodic)
+    before = nn_window.LAUNCHES
+    got = nn_window.nn_window_gather(pos.to(cuda), vals.to(cuda), 64, 1.0,
+                                     periodic=periodic)
+    torch.cuda.synchronize()
+    assert nn_window.LAUNCHES - before >= 2
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+    pos = torch.from_numpy(rng.random((40000, 3), np.float32))
+    ref = tnn.nn_assign(pos, 128, 1.0, periodic=periodic)
+    before = nn_index_sweep.LAUNCHES
+    got = tnn.nn_assign(pos.to(cuda), 128, 1.0, periodic=periodic)
+    torch.cuda.synchronize()
+    assert nn_index_sweep.LAUNCHES == before + 2
     assert torch.equal(got.cpu(), ref)
 
 

@@ -92,6 +92,31 @@ def test_state_only_fused_payload_matches_pallas_kernel():
     _assert_equal_up_to_ties(got, ref, got, ref, True)
 
 
+@pytest.mark.parametrize("n_pay", [0, 1])
+def test_d2_out_matches_pallas_kernel(n_pay):
+    """``d2_out``: the exact path's d2-only descent runs with no payload
+    channel (C = 3, one output channel), a payload adds its channels
+    first.  Payload equal up to ties; d2 within two float32 ulps of the
+    interpreted kernel (XLA's CPU compiler fuses its distance sums into
+    multiply-adds; the port rounds every product, as the TPU does)."""
+    state = _state_only(seed=6 + n_pay)[:3 + n_pay].copy()
+    kw = dict(periodic=True, has_occ=False, payload_out=True, d2_out=True,
+              iters=2)
+    ref = np.asarray(j_sweep(jnp.asarray(state), None, BOX, tile=8,
+                             interpret=True, **kw))
+    got = sweep_tiles_vals(torch.from_numpy(state), None, BOX, **kw).numpy()
+    assert got.shape == ref.shape == (n_pay + 1, N, N, N)
+    np.testing.assert_allclose(got[-1], ref[-1], rtol=2.5e-7, atol=0)
+    if n_pay:
+        _assert_equal_up_to_ties(got[:-1], ref[:-1], got[:-1], ref[:-1],
+                                 True)
+    two = sweep_vals_plain(sweep_vals_plain(torch.from_numpy(state), None,
+                                            BOX, has_occ=False), None, BOX,
+                           has_occ=False)
+    d2 = nn_sweep._make_dist2(N, BOX, True)(two)
+    np.testing.assert_array_equal(got[-1], d2.numpy())
+
+
 def test_iters_are_jacobi_passes():
     """iters=n is n single passes, each reading the previous output;
     payload_out keeps channels 3..C-1-has_occ of the last pass."""
@@ -134,3 +159,9 @@ def test_wrapper_checks_inputs():
                          1.0)
     with pytest.raises(ValueError, match="iters"):
         sweep_tiles_vals(torch.zeros(7, 4, 4, 4), None, 1.0, iters=0)
+    with pytest.raises(ValueError, match="d2_out needs payload_out"):
+        sweep_tiles_vals(torch.zeros(3, 4, 4, 4), None, 1.0, has_occ=False,
+                         d2_out=True)
+    with pytest.raises(ValueError, match="no payload channel"):
+        sweep_tiles_vals(torch.zeros(3, 4, 4, 4), None, 1.0, has_occ=False,
+                         payload_out=True)

@@ -148,12 +148,14 @@ def test_ngp_spectrum_matches_jax():
 
 def test_unported_options_raise():
     p, _ = _particles(100, 22)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tpipe.deposit(p, 8, method="cic")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tpipe.power_spectrum(p, 8, method="ngp", interlace=True)
     with pytest.raises(NotImplementedError, match="slice 4"):
-        tpipe.deposit(p, 8, method="nn", exact=True)
+        tpipe.deposit(p, 8, method="cic")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tpipe.power_spectrum(p, 8, method="ngp", interlace=True)
+    # exact NN is ported (tests/test_torch_nn_window.py, _nn_index.py)
+    field = tpipe.deposit(p, 8, method="nn", exact=True)
+    assert field.velocity.shape == (3, 8, 8, 8)
+    assert bool(torch.isfinite(field.velocity).all())
 
 
 def test_wrapper_checks_inputs():

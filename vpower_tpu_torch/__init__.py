@@ -3,9 +3,10 @@
 Same public names and the same channels-first ``(C, N, N, N)`` layout
 as the JAX package, so each function is held against its counterpart on
 the same inputs.  Work runs on the device of the input tensors: on a
-CUDA tensor the two hand-written kernels of ``csrc/`` (the sorted
-deposit and the nearest-neighbour sweep) launch, built with ``nvcc`` at
-first use; on a CPU tensor their plain PyTorch versions run.  Importing
+CUDA tensor the hand-written kernels of ``csrc/`` (the sorted deposit,
+the value- and index-carry nearest-neighbour sweeps and the exact-NN
+window sweep) launch, built with ``nvcc`` at first use; on a CPU tensor
+their plain PyTorch versions run.  Importing
 the package needs neither a card nor ``nvcc``, and never imports JAX.
 
 Quickstart (the unfolded velocity spectrum of the JAX quickstart)::
@@ -27,7 +28,14 @@ from .io.synthetic import (
     particles_from_field,
     synthetic_particles,
 )
-from .deposit.nn import nn_gather_grid, nn_interp_to_field, nn_velocity_grid
+from .deposit.nn import (
+    nn_assign,
+    nn_brute_force,
+    nn_gather_grid,
+    nn_interp_to_field,
+    nn_velocity_grid,
+)
+from .deposit.nn_window import nn_exact_assign, nn_window_gather
 from .deposit.scatter import deposit_ngp
 from .run.pipeline import deposit, power_spectrum, spectrum_from_field
 from .spectrum.power import real_power_binned, shell_bin, shell_bin_rfft
@@ -40,9 +48,13 @@ __all__ = [
     "grid_positions",
     "particles_from_field",
     "synthetic_particles",
+    "nn_assign",
+    "nn_brute_force",
+    "nn_exact_assign",
     "nn_gather_grid",
     "nn_interp_to_field",
     "nn_velocity_grid",
+    "nn_window_gather",
     "deposit_ngp",
     "deposit",
     "power_spectrum",

@@ -35,7 +35,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+# one lock per kernel: builds of different kernels may run in parallel
+# threads (one nvcc each), a second load of the same kernel waits
+_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
 _LIBS: dict = {}
 # per kernel: nvcc's output of the build this process ran (ptxas lists
 # registers, shared memory and spills per kernel); empty when cached
@@ -58,7 +61,9 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -49,8 +49,8 @@ __global__ void nn_sweep_vals_kernel(const float* __restrict__ state,
                                      const float* __restrict__ seeds,
                                      float* __restrict__ out, int n,
                                      int n_ch, int k, int has_occ,
-                                     int payload_out, int periodic,
-                                     float box, float cell) {
+                                     int payload_out, int d2_out,
+                                     int periodic, float box, float cell) {
   const long long n3 = (long long)n * n * n;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n3) return;
@@ -123,6 +123,7 @@ __global__ void nn_sweep_vals_kernel(const float* __restrict__ state,
     for (int c = 3; c < kMaxChan; ++c) {
       if (c < 3 + n_pay) out[(c - 3) * n3 + idx] = best[c];
     }
+    if (d2_out) out[n_pay * n3 + idx] = best_d;
   } else {
 #pragma unroll
     for (int c = 0; c < kMaxChan; ++c) {
@@ -134,15 +135,18 @@ __global__ void nn_sweep_vals_kernel(const float* __restrict__ state,
 }  // namespace
 
 // state (n_ch, n, n, n) f32; seeds (k * n_ch, n, n, n) f32 or null
-// (k = 0); out (n_ch, n, n, n) f32, or (n_ch - 3 - has_occ, n, n, n)
-// when payload_out.  out must not alias state or seeds.  Requires
-// 3 + has_occ <= n_ch <= 16.  Launches one pass on `stream` and returns
-// the cudaError_t of the launch (0 = success).
+// (k = 0); out (n_ch, n, n, n) f32, or (n_ch - 3 - has_occ + d2_out,
+// n, n, n) when payload_out: the payload channels, then with d2_out the
+// best squared distance (the exact path's seed bound; it runs this
+// with no payload channel, C = 3).  out must not alias state or seeds.
+// Requires 3 + has_occ <= n_ch <= 16.  Launches one pass on `stream`
+// and returns the cudaError_t of the launch (0 = success).
 extern "C" int nn_sweep_vals(const float* state, const float* seeds,
                              float* out, int n, int n_ch, int k, int has_occ,
-                             int payload_out, int periodic, float box,
-                             float cell, void* stream) {
-  if (n_ch < 3 + (has_occ ? 1 : 0) || n_ch > kMaxChan) {
+                             int payload_out, int d2_out, int periodic,
+                             float box, float cell, void* stream) {
+  if (n_ch < 3 + (has_occ ? 1 : 0) || n_ch > kMaxChan ||
+      (d2_out && !payload_out)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long n3 = (long long)n * n * n;
@@ -150,7 +154,7 @@ extern "C" int nn_sweep_vals(const float* state, const float* seeds,
   long long blocks = (n3 + threads - 1) / threads;
   nn_sweep_vals_kernel<<<(unsigned int)blocks, threads, 0,
                          (cudaStream_t)stream>>>(
-      state, seeds, out, n, n_ch, k, has_occ, payload_out, periodic, box,
-      cell);
+      state, seeds, out, n, n_ch, k, has_occ, payload_out, d2_out, periodic,
+      box, cell);
   return (int)cudaGetLastError();
 }

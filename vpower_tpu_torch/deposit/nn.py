@@ -23,6 +23,13 @@ marking a real candidate.
    (``_PREMERGE_MIN``) the rank-0 seeds are merged at their own cell
    and the sweeps run state-only, the last emitting payload only.
 
+The index path (:func:`nn_assign`) answers "which particle" instead:
+an int32 index and a position per cell through the same pyramid, its
+Jacobi levels on K3 (:mod:`.nn_index_sweep`), optionally followed by
+the particle-major ring refinement; ``nn_interp_to_field(exact=True)``
+takes it where the exact window sweep (:mod:`.nn_window`) cannot tile
+the grid.
+
 Accuracy: against brute force the fast mode misassigns a small
 fraction of cells, each miss within a cell diagonal of the true nearest
 distance (``tests/test_torch_nn.py`` asserts a rate below 2e-2 at
@@ -38,10 +45,12 @@ import torch
 from ..core.arith import div
 from ..core.field import BoxField
 from ..core.particles import Particles
+from .nn_index_sweep import sweep_tiles
 from .nn_sweep import _centers_1d, _make_dist2, _min_image, sweep_tiles_vals
 from .sorted_scatter import deposit_sorted
 
-__all__ = ["nn_gather_grid", "nn_velocity_grid", "nn_interp_to_field"]
+__all__ = ["nn_assign", "nn_brute_force", "nn_gather_grid",
+           "nn_velocity_grid", "nn_interp_to_field"]
 
 _COARSEST = 8  # grid size solved by dense all-pairs distance
 
@@ -273,12 +282,16 @@ def nn_gather_grid(
     periodic: bool = True,
     n_seeds: int = 2,
     rounds: int = 1,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_d2: bool = False,
+):
     """``(payload (V, N, N, N), occ ())``: per cell, the payload of the
     particle nearest to the cell centre, plus a scalar occupancy flag
     (1.0 iff any particle exists; occupancy is spatially uniform because
-    the coarsest solve is global).  ``vals`` is (Np, V) f32.  Same
-    seeds, schedule and sweeps as the TPU ran (see the module note)."""
+    the coarsest solve is global).  ``vals`` is (Np, V) f32, V may be 0.
+    Same seeds, schedule and sweeps as the TPU ran (see the module
+    note).  ``return_d2`` appends the squared distance (physical units)
+    to the chosen candidate, an upper bound on the true NN distance that
+    the exact window sweep (:mod:`.nn_window`) starts from."""
     dtype = pos.dtype
     pos = torch.remainder(pos, box_size)
     vals = vals.to(torch.float32)
@@ -311,13 +324,18 @@ def nn_gather_grid(
             del sc
             if _jacobi_level(n):
                 # rounds + 1 state-only passes, the last emitting payload
+                # (and the best d2 as one more channel)
                 pay = sweep_tiles_vals(st, None, box_size, periodic=periodic,
                                        has_occ=False, payload_out=True,
-                                       iters=rounds + 1)
+                                       d2_out=return_d2, iters=rounds + 1)
+                if return_d2:
+                    return pay[:-1], occ_any, pay[-1]
             else:
                 for _ in range(rounds + 1):
                     st = _sweep_state_xla(st, dist2, _level_shifts(1))
                 pay = st[3:]
+                if return_d2:
+                    return pay, occ_any, dist2(st)
             return pay, occ_any
         ch = _upsample_cube(state[0])
         if _jacobi_level(n):
@@ -338,7 +356,12 @@ def nn_gather_grid(
                 ch, d = torch.where(take, sc[r], ch), torch.where(take, cd, d)
             state = _sweep_vals((ch, d), dist2, big, _level_shifts(rounds), sc)
 
-    return state[0][3:-1], torch.amax(state[0][-1])
+    occ = torch.amax(state[0][-1])
+    if return_d2:
+        dist2 = _make_dist2(n_grid, box_size, periodic, dtype, pos.device)
+        d2 = torch.where(state[0][-1] > 0.5, dist2(state[0]), big)
+        return state[0][3:-1], occ, d2
+    return state[0][3:-1], occ
 
 
 def nn_velocity_grid(particles: Particles, n_grid: int,
@@ -354,20 +377,277 @@ def nn_velocity_grid(particles: Particles, n_grid: int,
 
 def nn_interp_to_field(particles: Particles, n_grid: int,
                        periodic: bool = True, exact: bool = False) -> BoxField:
-    """NN-interpolate ``[v, rho]`` onto the grid and form a BoxField with
-    ``mass = rho * Lcell^3`` (reference ``interp.py:246-277``).  For one
-    gathered particle ``(rho v) / rho == v``, so the velocity is carried
-    directly.  ``exact=True`` (the window sweep) is not ported yet."""
-    if exact:
-        raise NotImplementedError(
-            "nn_interp_to_field(exact=True) needs the exact-NN window sweep "
-            "(K4), which is ported in slice 4"
-        )
+    """NN-interpolate ``[rho v, rho]`` onto the grid and form a BoxField
+    with ``v = (rho v) / rho`` and ``mass = rho * Lcell^3`` (reference
+    ``interp.py:246-277``).  The fast mode carries ``[v, rho]`` through
+    the descent (for one gathered particle ``(rho v) / rho == v``).
+    ``exact=True`` takes the exact window sweep (:mod:`.nn_window`) on
+    grids it tiles (``n_grid % 64 == 0``), elsewhere three-rank seeding
+    plus the radius-2 ring refinement of :func:`nn_assign`."""
     cell = particles.box_size / n_grid
-    vals = torch.cat([particles.vel, particles.density[:, None]], dim=1)
-    g, occ = nn_gather_grid(particles.pos, vals.to(torch.float32), n_grid,
-                            particles.box_size, periodic=periodic)
-    valid = (occ > 0.5) & (g[3] > 0)
-    rho = torch.where(valid, g[3], 0.0)
-    v_grid = torch.where(valid[None], g[:3], 0.0)
+    if not exact:
+        vals = torch.cat([particles.vel, particles.density[:, None]], dim=1)
+        g, occ = nn_gather_grid(particles.pos, vals.to(torch.float32),
+                                n_grid, particles.box_size,
+                                periodic=periodic)
+        valid = (occ > 0.5) & (g[3] > 0)
+        rho = torch.where(valid, g[3], 0.0)
+        v_grid = torch.where(valid[None], g[:3], 0.0)
+        return BoxField(velocity=v_grid, mass=rho * cell**3, cell_size=cell)
+
+    vec = particles.density_velocity_vector().to(torch.float32)
+    if n_grid % 64 == 0:
+        from .nn_window import nn_window_gather
+
+        pay, _, occ = nn_window_gather(particles.pos, vec, n_grid,
+                                       particles.box_size, periodic=periodic)
+        rho = pay[3]
+        valid = (occ > 0.5) & (rho > 0)
+        safe = torch.where(rho > 0, rho, 1.0)
+        v_grid = torch.where(valid[None], pay[:3] / safe, 0.0)
+        mass = torch.where(valid, rho, 0.0) * cell**3
+        return BoxField(velocity=v_grid, mass=mass, cell_size=cell)
+
+    idx = nn_assign(particles.pos, n_grid, particles.box_size,
+                    periodic=periodic, n_seeds=3, rounds=2, refine_radius=2)
+    grid = vec[idx.long()].permute(3, 0, 1, 2)  # (4, N, N, N)
+    rho = grid[3]
+    safe = torch.where(rho > 0, rho, 1.0)
+    v_grid = torch.where((rho > 0)[None], grid[:3] / safe, 0.0)
     return BoxField(velocity=v_grid, mass=rho * cell**3, cell_size=cell)
+
+
+# ---------------------------------------------------------------------- #
+# index path                                                             #
+# ---------------------------------------------------------------------- #
+def _seed_grids(pos: torch.Tensor, n_grid: int, box_size: float,
+                n_seeds: int):
+    """Rank-k nearest-to-own-centre particle per cell, k < n_seeds:
+    ``(seed_idx (k, n, n, n) i32, seed_pos (k, 3, n, n, n))``, index -1
+    where a cell holds fewer than k + 1 particles.  As the TPU ran it:
+    one sort by (cell id, distance to the centre) — two stable sorts,
+    ties in input order — and ONE sorted deposit (K1) of the masked
+    channels [idx_hi, idx_lo, x, y, z] per rank; the index rides as
+    hi = (i+1) >> 11 and lo = (i+1) & 2047, both exact in f32, and
+    (0, 0) decodes to -1."""
+    cell = box_size / n_grid
+    ijk = torch.remainder(torch.floor(div(pos, cell)).to(torch.int32), n_grid)
+    ids = (ijk[:, 0] * n_grid + ijk[:, 1]) * n_grid + ijk[:, 2]
+    d = pos - (ijk.to(pos.dtype) + 0.5) * cell
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    by_d2 = torch.sort(d2, stable=True).indices
+    ids_s, by_id = torch.sort(ids[by_d2], stable=True)
+    order = by_d2[by_id]
+    enc = order.to(torch.int32) + 1
+    cols_s = torch.cat([torch.stack([(enc >> 11).to(torch.float32),
+                                     (enc & 2047).to(torch.float32)], 1),
+                        pos[order].to(torch.float32)], dim=1)   # (N, 5)
+    new_seg = ids_s[1:] != ids_s[:-1]
+    rank_mask = torch.cat([new_seg.new_ones(1), new_seg])         # rank 0
+    chans = []
+    for k in range(n_seeds):
+        chans.append(cols_s * rank_mask.to(torch.float32)[:, None])
+        if k + 1 < n_seeds:
+            rank_mask = torch.cat(
+                [new_seg.new_zeros(1), rank_mask[:-1] & ~new_seg])
+    grid = deposit_sorted(ids_s.contiguous(),
+                          torch.cat(chans, dim=1).contiguous(), n_grid**3)
+    grid = grid.reshape(n_seeds, 5, n_grid, n_grid, n_grid)
+    idx = (torch.round(grid[:, 0]).to(torch.int32) << 11) + \
+        torch.round(grid[:, 1]).to(torch.int32)
+    return idx - 1, grid[:, 2:5]
+
+
+def _merge(state, cand_idx, cand_pos, cand_d2):
+    bi, bp, bd = state
+    take = cand_d2 < bd
+    return (torch.where(take, cand_idx, bi), torch.where(take, cand_pos, bp),
+            torch.where(take, cand_d2, bd))
+
+
+def _sweep(state, dist2, big: float, shifts, seed_idx, seed_pos):
+    """Sequential sweep (the levels that are not Jacobi): each offset's
+    candidates, the state then every seed rank, merge into the running
+    state at once, so information chains across offsets."""
+    for shift in shifts:
+        ci = torch.roll(state[0], shift, (0, 1, 2))
+        cp = torch.roll(state[1], shift, (1, 2, 3))
+        state = _merge(state, ci, cp, torch.where(ci >= 0, dist2(cp), big))
+        for k in range(seed_idx.shape[0]):
+            ri = torch.roll(seed_idx[k], shift, (0, 1, 2))
+            rp = torch.roll(seed_pos[k], shift, (1, 2, 3))
+            state = _merge(state, ri, rp,
+                           torch.where(ri >= 0, dist2(rp), big))
+    return state
+
+
+def _coarsest_exact(seed_idx, seed_pos, n_grid: int, box_size: float,
+                    periodic: bool, big: float):
+    """Exact NN at the coarsest level: every cell against every seed
+    candidate, first minimum on ties.  ``(idx, pos (3, n, n, n), d2)``."""
+    cand_idx = seed_idx.reshape(-1)
+    cand_pos = seed_pos.permute(0, 2, 3, 4, 1).reshape(-1, 3)
+    axis = _centers_1d(n_grid, box_size, seed_pos.dtype, seed_pos.device)
+    cx, cy, cz = torch.meshgrid(axis, axis, axis, indexing="ij")
+    centers = torch.stack([cx.reshape(-1), cy.reshape(-1), cz.reshape(-1)], 1)
+    d = centers[:, None, :] - cand_pos[None, :, :]
+    if periodic:
+        d = _min_image(d, box_size)
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    d2 = torch.where(cand_idx[None, :] >= 0, d2, big)
+    best = torch.argmin(d2, dim=1)
+    cube = (n_grid,) * 3
+    return (cand_idx[best].reshape(cube),
+            cand_pos[best].T.reshape((3,) + cube),
+            torch.gather(d2, 1, best[:, None])[:, 0].reshape(cube))
+
+
+def _pool_seeds(seed_idx, seed_pos, parent_dist2, n_seeds: int, big: float):
+    """Index-path twin of :func:`_pool_seeds_vals`: the block minimum of
+    the packed d2 bits, the winner's index and position recovered by a
+    max-pool over the fine cells whose bits match (index -1 and
+    position -big as fillers; a block with no candidate gets index -1)."""
+    k = seed_idx.shape[0]
+    d2 = torch.stack([
+        torch.where(seed_idx[r] >= 0, parent_dist2(seed_pos[r]), big)
+        for r in range(k)
+    ])
+    packed = d2.view(torch.int32)
+    bigbits = int(torch.tensor(big, dtype=torch.float32).view(torch.int32))
+    out_idx, out_pos = [], []
+    for _ in range(n_seeds):
+        flat_min = packed[0]
+        for r in range(1, k):
+            flat_min = torch.minimum(flat_min, packed[r])
+        win = _win_min(flat_min)
+        mask = packed == _upsample_cube(win)[None]
+        mi = torch.full_like(seed_idx[0], -1)
+        mp = [torch.full_like(seed_pos[0, 0], -big) for _ in range(3)]
+        for r in range(k):
+            mi = torch.maximum(mi, torch.where(mask[r], seed_idx[r], -1))
+            for c in range(3):
+                mp[c] = torch.maximum(
+                    mp[c], torch.where(mask[r], seed_pos[r, c], -big))
+        out_idx.append(torch.where(win < bigbits, _win_max(mi), -1))
+        out_pos.append(torch.stack([_win_max(c) for c in mp]))
+        packed = torch.where(mask, _I32_MAX, packed)
+    return torch.stack(out_idx), torch.stack(out_pos)
+
+
+def _ring_refine(pos, n_grid: int, box_size: float, periodic: bool,
+                 radius: int, best_idx, best_d2):
+    """Exact particle-major correction: every particle scatter-mins its
+    distance into all cells within ``radius`` rings of its own cell,
+    then the lowest index among each cell's minimisers wins (a second
+    scatter).  Both scatters are ``amin``, which does not depend on
+    order; rows aimed at no cell land in one extra slot."""
+    n_cells = n_grid**3
+    cell = box_size / n_grid
+    dev = pos.device
+    ijk = torch.remainder(torch.floor(div(pos, cell)).to(torch.int32), n_grid)
+    pidx = torch.arange(pos.shape[0], dtype=torch.int32, device=dev)
+    rng = range(-radius, radius + 1)
+    offsets = [(dx, dy, dz) for dx in rng for dy in rng for dz in rng]
+    big = float(torch.finfo(pos.dtype).max)
+
+    def target_and_d2(off):
+        tgt = ijk + torch.tensor(off, dtype=torch.int32, device=dev)
+        delta = pos - (tgt.to(pos.dtype) + 0.5) * cell
+        if periodic:
+            t = torch.remainder(tgt, n_grid)
+            delta = _min_image(delta, box_size)
+            flat = (t[:, 0] * n_grid + t[:, 1]) * n_grid + t[:, 2]
+        else:
+            inside = ((tgt >= 0) & (tgt < n_grid)).all(dim=1)
+            flat = (tgt[:, 0] * n_grid + tgt[:, 1]) * n_grid + tgt[:, 2]
+            flat = torch.where(inside, flat, n_cells)
+        d2 = delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1] + \
+            delta[:, 2] * delta[:, 2]
+        return flat.long(), d2
+
+    d2min = torch.full((n_cells + 1,), big, dtype=pos.dtype, device=dev)
+    for off in offsets:
+        flat, d2 = target_and_d2(off)
+        d2min.scatter_reduce_(0, flat, d2, "amin")
+    idxmin = torch.full((n_cells + 1,), _I32_MAX, dtype=torch.int32,
+                        device=dev)
+    for off in offsets:
+        flat, d2 = target_and_d2(off)
+        tgt = torch.where(d2 <= d2min[flat], flat, n_cells)
+        idxmin.scatter_reduce_(0, tgt, pidx, "amin")
+    cube = (n_grid,) * 3
+    d2min = d2min[:n_cells].reshape(cube)
+    take = d2min < best_d2
+    return (torch.where(take, idxmin[:n_cells].reshape(cube), best_idx),
+            torch.where(take, d2min, best_d2))
+
+
+def nn_assign(pos: torch.Tensor, n_grid: int, box_size: float,
+              periodic: bool = True, n_seeds: int = 2, rounds: int = 1,
+              refine_radius: int = 0) -> torch.Tensor:
+    """(N, N, N) int32: index of the particle nearest to each cell
+    centre (the reference's ``pyann.nn2(k=1)``, ``interp.py:1027-1034``).
+    ``periodic`` picks the metric: minimum image or open box.  Levels
+    with ``n % 128 == 0`` run K3 (one seeded pass, then ``rounds``
+    state-only passes: re-offering the unchanged seeds cannot win), the
+    others the sequential sweep; this is the TPU's schedule of
+    ``nn_assign``.  ``refine_radius > 0`` adds the particle-major ring
+    refinement: exact wherever the true NN lies within that many cells
+    of the query."""
+    dtype = pos.dtype
+    pos = torch.remainder(pos, box_size)
+    big = float(torch.finfo(dtype).max)
+    levels = [n_grid]
+    while levels[-1] > _COARSEST and levels[-1] % 2 == 0:
+        levels.append(levels[-1] // 2)
+
+    seeds = {n_grid: _seed_grids(pos, n_grid, box_size, n_seeds)}
+    for n in levels[1:]:
+        pd2 = _parent_dist2(n * 2, box_size, periodic, dtype, pos.device)
+        seeds[n] = _pool_seeds(*seeds[n * 2], pd2, n_seeds, big)
+
+    n0 = levels[-1]
+    state = _coarsest_exact(*seeds[n0], n0, box_size, periodic, big)
+    for n in reversed(levels[:-1]):
+        bi, bp = _upsample_cube(state[0]), _upsample_cube(state[1])
+        si, sp = seeds.pop(n)
+        dist2 = _make_dist2(n, box_size, periodic, dtype, pos.device)
+        if n % 128 == 0:
+            bi, bp, _ = sweep_tiles(
+                bi.contiguous(), bp.contiguous(), si.contiguous(),
+                sp.reshape(si.shape[0] * 3, n, n, n).contiguous(), box_size,
+                periodic=periodic)
+            for _ in range(rounds):
+                bi, bp, _ = sweep_tiles(bi, bp, None, None, box_size,
+                                        periodic=periodic)
+            state = (bi, bp, torch.where(bi >= 0, dist2(bp), big))
+        else:
+            state = (bi, bp, torch.where(bi >= 0, dist2(bp), big))
+            for k in range(si.shape[0]):
+                state = _merge(state, si[k], sp[k],
+                               torch.where(si[k] >= 0, dist2(sp[k]), big))
+            state = _sweep(state, dist2, big, _level_shifts(rounds), si, sp)
+
+    best_idx, _, best_d2 = state
+    if refine_radius > 0:
+        best_idx, best_d2 = _ring_refine(pos, n_grid, box_size, periodic,
+                                         refine_radius, best_idx, best_d2)
+    return best_idx
+
+
+def nn_brute_force(pos: torch.Tensor, n_grid: int, box_size: float,
+                   periodic: bool = True) -> torch.Tensor:
+    """Exact O(N^3 Np) reference (tests): per cell centre, the first
+    particle at the least squared distance, 4096 centres at a time."""
+    axis = _centers_1d(n_grid, box_size, pos.dtype, pos.device)
+    cx, cy, cz = torch.meshgrid(axis, axis, axis, indexing="ij")
+    centers = torch.stack([cx.reshape(-1), cy.reshape(-1), cz.reshape(-1)], 1)
+    out = []
+    for c in centers.split(4096):
+        d = c[:, None, :] - pos[None, :, :]
+        if periodic:
+            d = _min_image(d, box_size)
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + \
+            d[..., 2] * d[..., 2]
+        out.append(torch.argmin(d2, dim=1))
+    return torch.cat(out).to(torch.int32).reshape((n_grid,) * 3)

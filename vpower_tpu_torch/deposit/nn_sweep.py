@@ -14,7 +14,9 @@ the source's header says what bounds it on the H100).  On a CPU tensor
 it runs the plain version :func:`sweep_vals_plain`, ``torch.roll``
 compares in the kernel's candidate order with the same float
 arithmetic, so the two agree bit for bit.  Any other device raises.
-``LAUNCHES`` counts kernel launches (one per pass).
+``LAUNCHES`` counts kernel launches (one per pass).  ``d2_out`` (the
+exact path's seed bound) appends the best squared distance of the last
+pass to its payload output.
 
 The TPU kernel's halo padding (``wrap_pad``, ``halo_z``), z chunking
 and scoped-VMEM budget (``fit_iters``) served its DMA engine and are
@@ -77,8 +79,8 @@ def _offsets():
 
 def sweep_vals_plain(state: torch.Tensor, seeds: Optional[torch.Tensor],
                      box_size: float, periodic: bool = True,
-                     has_occ: bool = True,
-                     payload_out: bool = False) -> torch.Tensor:
+                     has_occ: bool = True, payload_out: bool = False,
+                     d2_out: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ONE kernel pass (same arguments as
     :func:`sweep_tiles_vals` with ``iters=1``)."""
     n_ch, n = state.shape[0], state.shape[1]
@@ -101,11 +103,14 @@ def sweep_vals_plain(state: torch.Tensor, seeds: Optional[torch.Tensor],
             best = torch.where(take, cand, best)
             best_d = torch.where(take, cd, best_d)
     if payload_out:
-        return best[3:n_ch - (1 if has_occ else 0)].contiguous()
+        pay = best[3:n_ch - (1 if has_occ else 0)]
+        if d2_out:
+            pay = torch.cat([pay, best_d[None]])
+        return pay.contiguous()
     return best
 
 
-def _check(state, seeds, has_occ, iters):
+def _check(state, seeds, has_occ, payload_out, d2_out, iters):
     if state.ndim != 4 or not (state.shape[1] == state.shape[2]
                                == state.shape[3]):
         raise ValueError(f"state must be (C, N, N, N), got "
@@ -124,15 +129,21 @@ def _check(state, seeds, has_occ, iters):
                          f"{state.device}, got {tuple(seeds.shape)}")
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
+    if d2_out and not payload_out:
+        raise ValueError("d2_out needs payload_out")
+    if payload_out and not d2_out and n_ch == 3 + int(has_occ):
+        raise ValueError("payload_out of a state with no payload channel "
+                         "needs d2_out")
 
 
-def _launch(state, seeds, out, box_size, periodic, has_occ, payload_out):
+def _launch(state, seeds, out, box_size, periodic, has_occ, payload_out,
+            d2_out):
     from .. import _build
 
     fn = _build.load("nn_sweep").nn_sweep_vals
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_ch, n = state.shape[0], state.shape[1]
@@ -143,7 +154,8 @@ def _launch(state, seeds, out, box_size, periodic, has_occ, payload_out):
         rc = fn(state.data_ptr(),
                 seeds.data_ptr() if seeds is not None else None,
                 out.data_ptr(), n, n_ch, k, int(has_occ), int(payload_out),
-                int(periodic), float(box_size), float(box_size / n), stream)
+                int(d2_out), int(periodic), float(box_size),
+                float(box_size / n), stream)
     if rc != 0:
         raise RuntimeError(f"nn_sweep kernel launch failed: cudaError_t {rc}")
 
@@ -151,7 +163,7 @@ def _launch(state, seeds, out, box_size, periodic, has_occ, payload_out):
 def sweep_tiles_vals(state: torch.Tensor, seeds: Optional[torch.Tensor],
                      box_size: float, periodic: bool = True,
                      has_occ: bool = True, payload_out: bool = False,
-                     iters: int = 1) -> torch.Tensor:
+                     d2_out: bool = False, iters: int = 1) -> torch.Tensor:
     """``iters`` Jacobi sweep passes over a value-carry state.
 
     ``state`` (C, N, N, N) f32 carries candidate positions in channels
@@ -161,11 +173,14 @@ def sweep_tiles_vals(state: torch.Tensor, seeds: Optional[torch.Tensor],
     ``seeds`` stacks k rank fields of the same layout as (k*C, N, N, N),
     offered in every pass, or is None.  Returns the merged (C, N, N, N)
     state, or with ``payload_out`` only the payload channels of the last
-    pass (C - 3 - has_occ of them).  Meaning as the TPU kernel's
-    ``sweep_tiles_vals`` (``nn_pallas.py:518-540``).
+    pass (C - 3 - has_occ of them), followed with ``d2_out`` by the
+    pass's best squared distance as one more channel (the exact path
+    runs it with no payload channel at all: one output channel).
+    Meaning as the TPU kernel's ``sweep_tiles_vals``
+    (``nn_pallas.py:518-540``).
     """
     global LAUNCHES
-    _check(state, seeds, has_occ, iters)
+    _check(state, seeds, has_occ, payload_out, d2_out, iters)
     dev = state.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"sweep_tiles_vals runs on cpu or cuda tensors, "
@@ -178,14 +193,16 @@ def sweep_tiles_vals(state: torch.Tensor, seeds: Optional[torch.Tensor],
     cur = state
     for it in range(iters):
         last_payload = payload_out and it == iters - 1
+        last_d2 = d2_out and last_payload
         if dev == "cpu":
             cur = sweep_vals_plain(cur, seeds, box_size, periodic, has_occ,
-                                   last_payload)
+                                   last_payload, last_d2)
             continue
-        n_out = n_pay if last_payload else state.shape[0]
+        n_out = n_pay + int(last_d2) if last_payload else state.shape[0]
         out = torch.empty((n_out,) + tuple(state.shape[1:]),
                           dtype=torch.float32, device=state.device)
-        _launch(cur, seeds, out, box_size, periodic, has_occ, last_payload)
+        _launch(cur, seeds, out, box_size, periodic, has_occ, last_payload,
+                last_d2)
         LAUNCHES += 1
         cur = out
     return cur

@@ -31,7 +31,7 @@ def _deposit_scatter(particles: Particles, n_grid: int, method: str) -> BoxField
     if method != "ngp":
         raise NotImplementedError(
             f"scatter method {method!r}: only 'ngp' is ported; CIC comes "
-            f"with slice 3"
+            f"with slice 4"
         )
     values = torch.cat(
         [particles.vel * particles.mass[:, None], particles.mass[:, None]],
@@ -46,8 +46,8 @@ def _deposit_scatter(particles: Particles, n_grid: int, method: str) -> BoxField
 def deposit(particles: Particles, n_grid: int, method: str = "cic",
             **kwargs) -> BoxField:
     """Deposit/interpolate particles onto an (n_grid)^3 field:
-    ``ngp`` (scatter) or ``nn`` (nearest-neighbour gather, keyword
-    ``periodic``)."""
+    ``ngp`` (scatter) or ``nn`` (nearest-neighbour gather, keywords
+    ``periodic`` and ``exact``)."""
     if method == "ngp":
         return _deposit_scatter(particles, n_grid, method)
     if method == "nn":
@@ -56,7 +56,7 @@ def deposit(particles: Particles, n_grid: int, method: str = "cic",
         return nn_interp_to_field(particles, n_grid, **kwargs)
     if method in ("cic", "sph"):
         raise NotImplementedError(
-            f"deposition method {method!r} is ported in slice 3"
+            f"deposition method {method!r} is ported in slice 4"
         )
     raise ValueError(f"Unknown deposition method {method!r}")
 
@@ -67,7 +67,7 @@ def _quantity_grid(field: BoxField, quantity: str) -> torch.Tensor:
     if quantity in ("momentum", "energy"):
         raise NotImplementedError(
             f"quantity {quantity!r} is ported with the rest of the "
-            f"pipeline in slice 2"
+            f"pipeline in slice 3"
         )
     raise ValueError(
         "Unrecognized physical quantity name. "
@@ -111,10 +111,10 @@ def power_spectrum(
     with ``quantity="velocity"`` takes the velocity-only fast path
     (``rho`` is not carried through the descent)."""
     if interlace:
-        raise NotImplementedError("interlace=True is ported in slice 2")
+        raise NotImplementedError("interlace=True is ported in slice 3")
     if method not in ("nn", "ngp"):
         raise NotImplementedError(
-            f"power_spectrum(method={method!r}) is ported in slice 3"
+            f"power_spectrum(method={method!r}) is ported in slice 4"
         )
     comp_order = 1 if (compensate and method == "ngp") else 0
     if compensate and comp_order == 0:
