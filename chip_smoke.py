@@ -20,7 +20,8 @@ is non-zero):
    one process each, all started together.
 3. K1 (sorted deposit) against its plain version on the path's inputs:
    the seed grid bitwise, the NGP sums within 1e-6 of a float64 plain
-   version, two kernel runs bitwise; times of both.
+   version, two kernel runs bitwise; times of both, and of one
+   ``zeros().index_add_`` call (the library yardstick).
 4. K2 (NN sweep) against its plain version, bitwise, on every call the
    fast path makes (128^3 and 256^3 seeded then state-only; 512^3
    state-only ``iters=2`` ``payload_out``); times of both.
@@ -28,7 +29,8 @@ is non-zero):
    Psum against host float64 chains (NGP within 1e-6, NN within 5e-3:
    the gates of bench.py); NN misassignment on 2^18 random cells against
    a scipy kd-tree, every miss within a cell diagonal; Parseval.
-6. timing: three timed runs of the fast NN spectrum after a warm-up.
+6. timing: three timed runs of the fast NN spectrum after a warm-up, and
+   the stage times of a fourth.
 7. exact: ``power_spectrum(method="nn", exact=True)`` at 512^3.  K2's
    ``d2_out`` calls bitwise against the plain version; the tiers (h1,
    tiles and rows per pass, the longest span); K4 (window sweep) on every
@@ -45,7 +47,12 @@ is non-zero):
    ring-refined index route) on 4,096,000 particles: cells farther than
    the kd-tree's NN by more than 1e-4 cell, at most 1e-5 of the cells.
 
-The line before the last is the kernel summary as JSON; the last line is
+The kernel summary is one JSON line: per kernel its launches on the main
+path's run, its largest error against the plain version, its time, the
+plain version's, the library call's (K1 only), and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its FP32 operations over
+67 TFLOP/s (the H100 SXM's published peaks), computed from this run's
+inputs.  Then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; refuses to run
 without one.
 """
@@ -87,6 +94,12 @@ N_SMALL = 128            # K4's full plain comparison: 128^3 with
 N_SMALL_LATTICE = 54     # 54^3 = 157,464 particles (same occupancy)
 N_RING = 160             # the n % 64 != 0 route, one particle per cell
 RING_MISS_MAX = 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
+FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
+# FP32 operations to score one candidate: 3 sub, 3 mul, 2 add, 1 compare
+# (the periodic minimum image is the identity for all but the rare
+# candidate across the box, and is not counted)
+CAND_OPS = 9
 
 
 def _fail(msg):
@@ -253,6 +266,52 @@ def _centre_dist(chosen, cells, n_grid, box_size):
     return np.sqrt((dd**2).sum(axis=1))
 
 
+def _bound(n_bytes, n_ops):
+    """Least time on the card, ms, and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _k1_bound(sids, svals, n_cells):
+    """Rows read once, every output cell written once, one add a term."""
+    return _bound(_nbytes(sids, svals) + 4 * svals.shape[1] * n_cells,
+                  svals.numel())
+
+
+def _k2_bound(state, seeds, box_size, periodic=True, has_occ=True,
+              payload_out=False, d2_out=False, iters=1):
+    """Each pass reads its state and the seeds and writes its output;
+    a cell scores 52 state and 54 k seed candidates per pass."""
+    n_ch, n3 = state.shape[0], state[0].numel()
+    k = 0 if seeds is None else seeds.shape[0] // n_ch
+    n_out = n_ch - 3 - int(has_occ) + int(d2_out) if payload_out else n_ch
+    words = iters * (1 + k) * n_ch + (iters - 1) * n_ch + n_out
+    return _bound(4 * words * n3,
+                  iters * n3 * (52 + 54 * k) * (CAND_OPS + int(has_occ)))
+
+
+def _k3_bound(state_idx, state_pos, seed_idx, seed_pos, *_, **__):
+    """Inputs read once, (idx, pos, d2) written once; candidates as K2."""
+    n3 = state_idx.numel()
+    k = 0 if seed_idx is None else seed_idx.shape[0]
+    return _bound(_nbytes(state_idx, state_pos, seed_idx, seed_pos)
+                  + 20 * n3, n3 * (52 + 54 * k) * CAND_OPS)
+
+
+def _k4_bound(s0, s1, rows, state, zc, **_):
+    """Every row of a tile's span scored against the tile's 8 x 8 x zc
+    cells; the rows in spans, the spans and the state read once, the
+    state written once."""
+    span = int((s1 - s0).long().sum())
+    return _bound(_nbytes(s0, s1) + 4 * rows.shape[0] * span
+                  + 2 * _nbytes(state), span * 64 * zc * CAND_OPS)
+
+
 def _build_all(names):
     """Build the kernels in parallel, one nvcc each."""
     from vpower_tpu_torch import _build
@@ -276,6 +335,7 @@ def main():
     from vpower_tpu_torch.deposit import (nn_index_sweep, nn_sweep,
                                           nn_window, sorted_scatter)
     from vpower_tpu_torch.deposit.scatter import sort_by_cell
+    from vpower_tpu_torch.spectrum import power as power_mod
     from vpower_tpu_torch.spectrum.power import (hermitian_weights,
                                                  vector_power_rfft)
 
@@ -298,9 +358,12 @@ def main():
     logs = _build_all(names)
     print(f"[build] {len(names)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # ptxas -v: per kernel entry its registers, static shared memory and
+    # spills (the dynamic shared memory of K1 and K2 is set at launch)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     # ---- workload --------------------------------------------------
@@ -342,10 +405,21 @@ def main():
         sids, svals, n_cells), 5)
     k1_plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
         sids, svals, n_cells), 5)
+
+    def library_ms(sids, svals, n_cells):
+        """One zeros().index_add_ call, int64 ids made beforehand."""
+        ids64, vals_t = sids.long(), svals.T
+        return _time_ms(torch, lambda: torch.zeros(
+            (svals.shape[1], n_cells), device=dev).index_add_(
+                1, ids64, vals_t), 5)
+
+    k1_lib_ms = library_ms(sids, svals, n_cells)
+    k1_bound = _k1_bound(sids, svals, n_cells)
     print(f"[K1] seed grid {tuple(svals.shape)} rows -> ({svals.shape[1]}, "
           f"{n_cells}): bitwise equal to plain, two runs bitwise equal; "
-          f"kernel {k1_ms:.3f} ms, plain (index_add_) {k1_plain_ms:.3f} ms",
-          flush=True)
+          f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
+          f"zeros().index_add_ {k1_lib_ms:.3f} ms, bound {k1_bound[0]:.3f} "
+          f"ms ({k1_bound[1]})", flush=True)
     del out_k, out_k2, out_p, sids, svals
 
     values = torch.cat([particles.vel * particles.mass[:, None],
@@ -369,10 +443,14 @@ def main():
         sids, svals, N_GRID**3), 5)
     ngp_plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
         sids, svals, N_GRID**3), 5)
+    ngp_lib_ms = library_ms(sids, svals, N_GRID**3)
+    ngp_bound = _k1_bound(sids, svals, N_GRID**3)
     print(f"[K1] NGP {tuple(svals.shape)} rows -> (4, {N_GRID**3}): max "
           f"|err| / sum|terms| vs float64 plain {ngp_rel:.3e} (gate "
           f"{NGP_RTOL}), two runs bitwise equal; kernel {ngp_ms:.3f} ms, "
-          f"plain {ngp_plain_ms:.3f} ms", flush=True)
+          f"plain {ngp_plain_ms:.3f} ms, zeros().index_add_ "
+          f"{ngp_lib_ms:.3f} ms, bound {ngp_bound[0]:.3f} ms "
+          f"({ngp_bound[1]})", flush=True)
     del out_k, out_k2, ref, absref, err, sids, svals, values
 
     # ---- 4. K2 against its plain version --------------------------
@@ -403,13 +481,16 @@ def main():
             ms = _time_ms(torch, lambda: nn_sweep.sweep_tiles_vals(
                 *args, **kwargs), 3)
             plain_ms = _time_ms(torch, lambda: k2_plain(*args, **kwargs), 1)
+            bound = _k2_bound(*args, **kwargs)
             print(f"[K2] {mode}: bitwise equal to plain; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+                  f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
+                  f"({bound[1]})", flush=True)
             del out, plain
-            yield ms, plain_ms
+            yield ms, plain_ms, bound
 
-    for ms, plain_ms in check_k2(k2_calls.calls):
-        k2["ms"], k2["plain_ms"] = ms, plain_ms  # last: 512^3 payload
+    for ms, plain_ms, bound in check_k2(k2_calls.calls):
+        # the last: 512^3 payload
+        k2["ms"], k2["plain_ms"], k2["bound"] = ms, plain_ms, bound
     del k2_calls
     torch.cuda.empty_cache()
 
@@ -526,6 +607,25 @@ def main():
           f"warm-up: min {times[0]:.4f} s, median {times[1]:.4f} s, spread "
           f"{times[2] - times[0]:.4f} s on {smi}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    # stage times (a separate run, synchronized around each call); K1
+    # runs inside the seeds, K2 is sweep_tiles_vals, the torch sweeps of
+    # the levels below 128^3 are _sweep_vals
+    targets = [(nn_mod, n) for n in (
+        "_seed_grids_vals", "_pool_seeds_vals", "_coarsest_exact_vals",
+        "_premerge_upsampled", "sweep_tiles_vals", "_sweep_vals")] + [
+        (power_mod, n) for n in ("vector_power_rfft", "shell_bin_rfft")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages(torch, targets) as st:
+        vt.power_spectrum(particles, N_GRID, method="nn")
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stages = {}
+    for name, sec in st.times:
+        stages[name] = stages.get(name, 0.0) + sec
+    print(f"[timing] NN stages (synchronized, {total:.4f} s in all): "
+          + ", ".join(f"{n} {s:.4f} s" for n, s in stages.items())
+          + f"; rest {total - sum(stages.values()):.4f} s", flush=True)
     torch.cuda.empty_cache()
 
     # ---- 7. exact NN spectrum (window sweep) ------------------------
@@ -641,6 +741,7 @@ def main():
             s0, s1, rows, state, **kw), 1)
         if i == 0:
             k4["ms"], k4["plain_ms"] = ms, plain_ms
+            k4["bound"] = _k4_bound(s0, s1, rows, state, **kw)
         print(f"[K4] {N_SMALL}^3 pass {i} {kw}, "
               f"{N_SMALL_LATTICE**3} particles: bitwise equal to plain; "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
@@ -749,6 +850,7 @@ def main():
             *args, **kwargs), 1)
         if n == N_GRID and k > 0:
             k3["ms"], k3["plain_ms"] = ms, plain_ms
+            k3["bound"] = _k3_bound(*args, **kwargs)
         print(f"[K3] n={n} k={k}: idx, pos and d2 bitwise equal to plain, two "
               f"runs bitwise equal; kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms", flush=True)
@@ -823,27 +925,25 @@ def main():
            f"{n_off} cells of the 160^3 ring route off the kd-tree")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    def entry(name, replaces, launches, err, rec, library=None):
+        return {"name": name, "route": "cuda",
+                "source": f"vpower_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+                "bound_by": rec["bound"][1], "library_ms": library}
+
     kernels = [
-        {"name": "sorted_scatter", "route": "cuda",
-         "source": "vpower_tpu_torch/csrc/sorted_scatter.cu",
-         "replaces": "vpower_tpu/deposit/mxu_scatter.py:263",
-         "launches": launches["sorted_scatter"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "nn_sweep", "route": "cuda",
-         "source": "vpower_tpu_torch/csrc/nn_sweep.cu",
-         "replaces": "vpower_tpu/deposit/nn_pallas.py:608",
-         "launches": launches["nn_sweep"], "max_abs_err": k2["err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "nn_index_sweep", "route": "cuda",
-         "source": "vpower_tpu_torch/csrc/nn_index_sweep.cu",
-         "replaces": "vpower_tpu/deposit/nn_pallas.py:494",
-         "launches": i_launches["nn_index_sweep"], "max_abs_err": k3["err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
-        {"name": "window_sweep", "route": "cuda",
-         "source": "vpower_tpu_torch/csrc/window_sweep.cu",
-         "replaces": "vpower_tpu/deposit/nn_window.py:449",
-         "launches": x_launches["window_sweep"], "max_abs_err": k4["err"],
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
+        entry("sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
+              launches["sorted_scatter"], k1_err,
+              {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
+              library=k1_lib_ms),
+        entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
+              launches["nn_sweep"], k2["err"], k2),
+        entry("nn_index_sweep", "vpower_tpu/deposit/nn_pallas.py:494",
+              i_launches["nn_index_sweep"], k3["err"], k3),
+        entry("window_sweep", "vpower_tpu/deposit/nn_window.py:449",
+              x_launches["window_sweep"], k4["err"], k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

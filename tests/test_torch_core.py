@@ -37,7 +37,7 @@ def _arrays(n_p, seed):
 
 def test_particles_from_numpy_matches_jax():
     pos, mass, rho, vel = _arrays(500, 1)
-    p = Particles.from_numpy(pos, mass, rho, vel, 2.0)
+    p = Particles.from_numpy(pos, mass, rho, vel, 2.0, device="cpu")
     pj = JParticles(pos=jnp.asarray(pos), mass=jnp.asarray(mass),
                     density=jnp.asarray(rho), vel=jnp.asarray(vel),
                     box_size=2.0)
@@ -55,7 +55,7 @@ def test_boxfield_from_numpy():
     rng = np.random.default_rng(2)
     v = rng.standard_normal((3, 8, 8, 8)).astype(np.float32)
     m = rng.random((8, 8, 8)).astype(np.float32)
-    f = BoxField.from_numpy(v, m, 0.25)
+    f = BoxField.from_numpy(v, m, 0.25, device="cpu")
     assert f.n_grid == 8 and f.box_size == 2.0
     np.testing.assert_array_equal(f.velocity.numpy(), v)
     with pytest.raises(ValueError, match="channels-first"):
@@ -96,7 +96,7 @@ def test_gaussian_random_field_filter():
 
 def test_grid_positions_and_sampling_match_jax():
     n, box = 12, 3.0
-    lat = tsyn.grid_positions(n, box).numpy()
+    lat = tsyn.grid_positions(n, box, device="cpu").numpy()
     np.testing.assert_array_equal(lat, np.asarray(jsyn.grid_positions(n, box)))
     jit = tsyn.grid_positions(n, box, generator=torch.Generator().manual_seed(4),
                               jitter=3.0).numpy()
@@ -129,6 +129,30 @@ def test_import_does_not_import_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _construct(name, **kw):
+    pos, mass, rho, vel = _arrays(10, 3)
+    if name == "particles":
+        return Particles.from_numpy(pos, mass, rho, vel, 1.0, **kw).pos
+    if name == "boxfield":
+        return BoxField.from_numpy(np.zeros((3, 4, 4, 4), np.float32),
+                                   np.ones((4, 4, 4), np.float32), 0.25,
+                                   **kw).velocity
+    return tsyn.grid_positions(4, 1.0, **kw)
+
+
+@pytest.mark.parametrize("name", ["particles", "boxfield", "grid_positions"])
+def test_constructors_default_to_the_card(name):
+    """With no device, the host-array constructors and the lattice ask
+    for the card: on a torch without one they raise, never land on the
+    CPU; a caller who names the CPU gets CPU tensors."""
+    if torch.cuda.is_available():
+        assert _construct(name).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            _construct(name)
+    assert _construct(name, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -35,10 +35,12 @@ def cuda():
 
 
 @pytest.mark.parametrize("n_chan,with_carry", [(1, False), (4, True),
-                                               (7, False), (9, True)])
+                                               (7, False), (9, True),
+                                               (70, True)])
 def test_sorted_scatter_kernel_matches_plain(cuda, n_chan, with_carry):
     rng = np.random.default_rng(n_chan)
-    n_cells = 37**3  # not a multiple of the block size
+    n_cells = 37**3  # not a multiple of the tile
+    # 70 channels: two groups of at most 64, one block each
     sids = np.sort(rng.integers(0, n_cells, 200_000)).astype(np.int32)
     sids[:5000] = 3  # one long run
     sids.sort()
@@ -55,6 +57,33 @@ def test_sorted_scatter_kernel_matches_plain(cuda, n_chan, with_carry):
     torch.cuda.synchronize()
     assert sorted_scatter.LAUNCHES == before + 1
     assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("n_chan", [4, 7])
+def test_sorted_scatter_kernel_edge_cases(cuda, n_chan):
+    """A run of 300,000 rows in one cell (far more than one 256-row chunk
+    of its tile), three whole tiles with no rows, ``n_cells`` not a
+    multiple of the tile (2,048 cells at C = 4, 1,024 at C = 7) and a
+    carry holding -0.0: bitwise equal to the plain version, signs of
+    zero included."""
+    rng = np.random.default_rng(100 + n_chan)
+    n_cells = 5 * 2048 + 37
+    ids = np.concatenate([np.full(300_000, 777),
+                          rng.integers(0, 2048, 5000),
+                          rng.integers(4 * 2048, n_cells, 5000)])
+    sids = np.sort(ids).astype(np.int32)
+    svals = rng.standard_normal((sids.size, n_chan)).astype(np.float32)
+    svals[::5] = -0.0
+    carry = rng.standard_normal((n_chan, n_cells)).astype(np.float32)
+    carry[:, ::2] = -0.0
+    s, v, c = (torch.from_numpy(a) for a in (sids, svals, carry))
+    for cr in (None, c):
+        ref = sorted_scatter.deposit_sorted(s, v, n_cells, carry=cr)
+        got = sorted_scatter.deposit_sorted(
+            s.to(cuda), v.to(cuda), n_cells,
+            carry=None if cr is None else cr.to(cuda)).cpu()
+        assert torch.equal(got, ref)
+        assert torch.equal(torch.signbit(got), torch.signbit(ref))
 
 
 def _seeded_inputs(n, box, seed, n_pay=3, k=2):
@@ -90,6 +119,56 @@ def test_nn_sweep_kernel_matches_plain_state_only(cuda, n_pay):
     ref = nn_sweep.sweep_tiles_vals(state, None, box, **kw)
     got = nn_sweep.sweep_tiles_vals(state.to(cuda), None, box, **kw)
     assert got.shape == (n_pay, n, n, n)
+    assert torch.equal(got.cpu(), ref)
+
+
+# (channels kept of the seeded state, with seeds, sweep_tiles_vals kwargs)
+_K2_MODES = {
+    "seeded": (7, True, dict(iters=2)),
+    "seeded_payload": (7, True, dict(payload_out=True)),
+    "state": (6, False, dict(has_occ=False)),
+    "state_payload": (6, False, dict(has_occ=False, payload_out=True,
+                                     iters=2)),
+    "state_d2": (6, False, dict(has_occ=False, payload_out=True,
+                                d2_out=True, iters=2)),
+    "d2_only": (3, False, dict(has_occ=False, payload_out=True, d2_out=True,
+                               iters=2)),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_K2_MODES))
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("n", [4, 5, 20, 36])
+def test_nn_sweep_kernel_small_and_ragged_grids(cuda, n, periodic, mode):
+    """n below the 2-cell halo (indices wrap more than once: 4, 5) and n
+    not a multiple of the 4 x 8 x 32 tile (20, 36), every mode."""
+    box = 1.0 if n % 2 == 0 else 3.7
+    n_ch, seeded, kw = _K2_MODES[mode]
+    state, seeds = _seeded_inputs(n, box, seed=n)
+    state = state[:n_ch].contiguous()
+    if not seeded:
+        seeds = None
+    ref = nn_sweep.sweep_tiles_vals(state, seeds, box, periodic=periodic, **kw)
+    got = nn_sweep.sweep_tiles_vals(
+        state.to(cuda), None if seeds is None else seeds.to(cuda), box,
+        periodic=periodic, **kw)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_nn_sweep_kernel_ties_across_fields(cuda):
+    """Seed fields that repeat the state's positions at other offsets: on
+    an equal distance the first candidate in the kernel's order wins,
+    though the kernel scans the state before the seeds."""
+    n, box = 20, 1.0
+    state, seeds = _seeded_inputs(n, box, seed=99)
+    seeds = seeds.reshape(2, 7, n, n, n).clone()
+    seeds[0, :3] = torch.roll(state[:3], (1, 0, -1), (1, 2, 3))
+    seeds[1, :3] = torch.roll(state[:3], (0, 2, 1), (1, 2, 3))
+    seeds[:, 6] = 1.0
+    seeds = seeds.reshape(14, n, n, n).contiguous()
+    ref = nn_sweep.sweep_tiles_vals(state, seeds, box, iters=2)
+    got = nn_sweep.sweep_tiles_vals(state.to(cuda), seeds.to(cuda), box,
+                                    iters=2)
     assert torch.equal(got.cpu(), ref)
 
 
@@ -228,7 +307,7 @@ def test_ngp_spectrum_on_card_matches_cpu(cuda):
     p = Particles.from_numpy(
         rng.random((n_p, 3), np.float32), np.ones(n_p, np.float32),
         np.ones(n_p, np.float32),
-        rng.standard_normal((n_p, 3)).astype(np.float32), 1.0)
+        rng.standard_normal((n_p, 3)).astype(np.float32), 1.0, device="cpu")
     s_cpu = tpipe.power_spectrum(p, 64, method="ngp")
     s_gpu = tpipe.power_spectrum(p.to(cuda), 64, method="ngp")
     np.testing.assert_array_equal(s_gpu.Nsample, s_cpu.Nsample)

@@ -169,7 +169,7 @@ def _particles(n_p, seed):
                 mass=np.ones(n_p, np.float32),
                 density=(0.5 + rng.random(n_p)).astype(np.float32),
                 vel=rng.standard_normal((n_p, 3)).astype(np.float32))
-    return (Particles.from_numpy(box_size=BOX, **arrs),
+    return (Particles.from_numpy(box_size=BOX, device="cpu", **arrs),
             JParticles(box_size=BOX, **{k: jnp.asarray(v)
                                         for k, v in arrs.items()}))
 

@@ -119,7 +119,7 @@ def _particles(n_p, seed, box=1.0):
                 mass=(rng.random(n_p) + 0.5).astype(np.float32),
                 density=(rng.random(n_p) + 0.5).astype(np.float32),
                 vel=rng.standard_normal((n_p, 3)).astype(np.float32))
-    return (Particles.from_numpy(box_size=box, **arrs),
+    return (Particles.from_numpy(box_size=box, device="cpu", **arrs),
             JParticles(box_size=box, **{k: jnp.asarray(v)
                                         for k, v in arrs.items()}))
 
@@ -150,7 +150,7 @@ def test_unported_options_raise():
     p, _ = _particles(100, 22)
     with pytest.raises(NotImplementedError, match="slice 4"):
         tpipe.deposit(p, 8, method="cic")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         tpipe.power_spectrum(p, 8, method="ngp", interlace=True)
     # exact NN is ported (tests/test_torch_nn_window.py, _nn_index.py)
     field = tpipe.deposit(p, 8, method="nn", exact=True)

@@ -49,8 +49,9 @@ class BoxField:
 
     @classmethod
     def from_numpy(cls, velocity, mass, cell_size: float,
-                   device=None) -> "BoxField":
-        """Build from host arrays (copied; dtypes kept)."""
+                   device="cuda") -> "BoxField":
+        """Build from host arrays (copied; dtypes kept) on ``device``:
+        the card unless the caller asks for another."""
         def t(a):
             return torch.from_numpy(np.array(a, copy=True)).to(device)
 

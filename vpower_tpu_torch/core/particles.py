@@ -3,8 +3,9 @@
 PyTorch counterpart of :class:`vpower_tpu.core.particles.Particles`
 (itself the reference's ``GasParticles``, ``vpower/interp.py:135-451``).
 Every operation runs on the device of the tensors it is given; ``to``
-moves the set, ``from_numpy`` builds it from host arrays (the port's
-stand-in for weights: tests hand the same arrays to both packages).
+moves the set, ``from_numpy`` builds it from host arrays on the card
+unless the caller names another device (the port's stand-in for
+weights: tests hand the same arrays to both packages).
 """
 from __future__ import annotations
 
@@ -60,8 +61,10 @@ class Particles:
 
     @classmethod
     def from_numpy(cls, pos, mass, density, vel, box_size: float,
-                   device=None) -> "Particles":
-        """Build from host arrays (copied; dtypes kept)."""
+                   device="cuda") -> "Particles":
+        """Build from host arrays (copied; dtypes kept) on ``device``:
+        the card unless the caller asks for another, so a torch without
+        CUDA raises here rather than run the plain versions."""
         def t(a):
             return torch.from_numpy(np.array(a, copy=True)).to(device)
 

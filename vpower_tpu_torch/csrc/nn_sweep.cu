@@ -15,121 +15,300 @@
 // Candidates are always read from the pass input, never from this
 // pass's output (Jacobi): several passes are several launches.
 //
-// What bounds it on the H100: bytes.  A cell reads 26 state and 27 * k
-// seed neighbours of C floats each (27 * (1 + k) * C loads, ~1.1 KB at
-// k = 2, C = 7), so a pass over a 256^3 seeded level touches ~18 GB of
-// loads; most hit L1/L2, because neighbouring cells share neighbours,
-// and DRAM sees ~(1 + k) * C * 4 bytes in and C * 4 out per cell.
+// What bounds it on the H100: bytes, ~C * 4 in and C * 4 out per cell
+// (~1.9 ms for a 512^3 C = 6 pass at 3.35 TB/s), and instruction rate:
+// a cell scores 52 (state only) to 52 + 54 k candidates of ~15
+// instructions each (3 shared loads, 8 FP32 operations, a compare, two
+// selects), ~3.5 ms of instructions for a 512^3 pass.  A first design, one
+// thread per cell reading every neighbour from global memory with a %
+// wrap per neighbour, 64-bit addresses and all C channels of each winner
+// held in 78 registers, waited on load latency: ~60 ms per 512^3 pass.
 //
-// Design: one thread per output cell, consecutive threads along z, so
-// each neighbour read of a warp is one contiguous run of a channel
-// plane (coalesced).  Neighbours come straight from global memory with
-// a periodic index wrap: there is no padded copy (the TPU's wrap_pad
-// halo exists for DMA alignment).  Indices wrap even when periodic == 0;
-// only the distance metric changes, exactly as the TPU kernel's
-// mode="wrap" halo did.
+// Design: one block of 256 threads per 4 x 8 x 32 tile of cells (z
+// fastest: a warp is one z row).  Each field (the state, then each seed
+// field) is staged in turn into shared memory with a 2-cell halo:
+// only the channels the comparison reads (x, y, z, and occ with
+// has_occ), with the periodic index wrap computed once per block for
+// each staged plane, row and column, by cp.async copies that are all in
+// flight before the thread waits once.  The candidate loop then reads
+// shared memory at compile-time offsets: no %, no 64-bit arithmetic.  A
+// cell carries only its best distance and the winner's position in the
+// candidate order; the winner's channels are gathered once, at the end,
+// from the pass input (one channel of the thread's cells at a time, so
+// their loads overlap), which a Jacobi pass never changes, so they are
+// the channels the old per-candidate copy took.  Fields scanned later
+// (the seeds) meet candidates of earlier order positions (the state's
+// later offsets come after the seeds' earlier ones), so they take a
+// candidate also on an equal distance with an earlier position: the
+// result is the first candidate in the global order at the minimum
+// distance, the one the strict in-order scan keeps.
 //
 // Float semantics match the JAX kernel bit for bit: cell centres are
 // ((float)i + 0.5f) * cell, the minimum image is d - box * rintf(d / box)
 // (round half to even, like jnp.round; IEEE division), and
 // dx*dx + dy*dy + dz*dz is summed left to right with no FMA contraction
-// (built with -fmad=false).
+// (built with -fmad=false).  The shortcuts are exact.  When |d| <= box/2,
+// d / box rounds into [-0.5, 0.5] and rintf gives 0, so d is its own
+// minimum image (only the sign of a zero can differ, and it is squared
+// away).  A block whose staged candidates all lie that near every centre
+// of its tile on each axis (checked while staging) takes no minimum
+// image at all; that is every block away from the box faces.  At the
+// faces only the candidates with a far |d| divide.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxChan = 16;
 constexpr float kBig = 3.0e38f;
+constexpr int kThreads = 256;
+constexpr int kTX = 4, kTY = 8, kTZ = 32;  // output tile; kTY warps, kTZ lanes
+constexpr int kHalo = 2;                   // the stride-2 offsets
+constexpr int kSX = kTX + 2 * kHalo, kSY = kTY + 2 * kHalo;
+constexpr int kSZ = kTZ + 2 * kHalo, kSYZ = kSY * kSZ;
+constexpr int kSCells = kSX * kSYZ;  // staged cells per field
+static_assert(kSX + kSY + kSZ <= kThreads, "one thread per wrapped index");
 
-__device__ __forceinline__ float min_image(float d, float box, int periodic) {
-  return periodic ? d - box * rintf(d / box) : d;
+__device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
+
+// 4-byte global -> shared copy that does not hold a register or wait:
+// a thread starts all its staging copies, then waits once
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
 }
 
-__global__ void nn_sweep_vals_kernel(const float* __restrict__ state,
-                                     const float* __restrict__ seeds,
-                                     float* __restrict__ out, int n,
-                                     int n_ch, int k, int has_occ,
-                                     int payload_out, int d2_out,
-                                     int periodic, float box, float cell) {
-  const long long n3 = (long long)n * n * n;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n3) return;
-  const int z = (int)(idx % n);
-  const int y = (int)((idx / n) % n);
-  const int x = (int)(idx / ((long long)n * n));
-  const float fx = ((float)x + 0.5f) * cell;
-  const float fy = ((float)y + 0.5f) * cell;
-  const float fz = ((float)z + 0.5f) * cell;
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  float best[kMaxChan];
-#pragma unroll
-  for (int c = 0; c < kMaxChan; ++c) {
-    if (c < n_ch) best[c] = state[c * n3 + idx];
-  }
-  float best_d;
-  {
-    float dx = min_image(fx - best[0], box, periodic);
-    float dy = min_image(fy - best[1], box, periodic);
-    float dz = min_image(fz - best[2], box, periodic);
-    best_d = dx * dx + dy * dy + dz * dz;
-    // occ read from memory: a runtime index into best[] would put the
-    // array in local memory
-    if (has_occ && !(state[(n_ch - 1) * n3 + idx] > 0.5f)) best_d = kBig;
-  }
+// The squared minimum-image distance.  Out of line: the candidate loop
+// unrolls 36 distances, and three inlined IEEE divides in each made the
+// loop too large for the instruction cache, though few candidates divide.
+__device__ __noinline__ float image_dist2(float dx, float dy, float dz,
+                                          float box) {
+  dx = dx - box * rintf(dx / box);
+  dy = dy - box * rintf(dy / box);
+  dz = dz - box * rintf(dz / box);
+  return dx * dx + dy * dy + dz * dz;
+}
 
+// kWrap: take the minimum image of the candidates with a far |d| (off:
+// the open box, or a block where no |d| can exceed box / 2)
+template <bool kWrap>
+__device__ __forceinline__ float dist2(float fx, float fy, float fz, float px,
+                                       float py, float pz, float box,
+                                       float half) {
+  const float dx = fx - px, dy = fy - py, dz = fz - pz;
+  if (kWrap &&
+      !(fabsf(dx) <= half && fabsf(dy) <= half && fabsf(dz) <= half)) {
+    return image_dist2(dx, dy, dz, box);
+  }
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// Offers one staged field to the thread's kTX cells (x neighbours, one
+// staged plane apart) in candidate order.  A winner is recorded as
+// (order << 16) + f + 1, order = stride index * 27 + offset index, which
+// sorts as the candidate order.  kState: the state field (no centre
+// candidate, and it is scanned first, so strict < alone keeps the first
+// minimum); otherwise seed field f, whose candidates also win an equal
+// distance held by a later order position.
+template <bool kWrap, bool kOcc, bool kState>
+__device__ __forceinline__ void scan(const float* __restrict__ sm, int f,
+                                     int base, const float (&fx)[kTX],
+                                     float fy, float fz, float (&bd)[kTX],
+                                     int (&bp)[kTX], float box, float half) {
+#pragma unroll 1
   for (int si = 0; si < 2; ++si) {
-    const int s = si == 0 ? 2 : 1;
+    const int s = 2 - si;
+#pragma unroll 1
     for (int ox = -1; ox <= 1; ++ox) {
-      int xn = (x + ox * s) % n;
-      if (xn < 0) xn += n;
-      for (int oy = -1; oy <= 1; ++oy) {
-        int yn = (y + oy * s) % n;
-        if (yn < 0) yn += n;
-        for (int oz = -1; oz <= 1; ++oz) {
-          int zn = (z + oz * s) % n;
-          if (zn < 0) zn += n;
-          const long long nb = ((long long)xn * n + yn) * n + zn;
-          const bool centre = ox == 0 && oy == 0 && oz == 0;
-          // f == -1: the state field; f >= 0: seed rank f
-          for (int f = centre ? 0 : -1; f < k; ++f) {
-            const float* src = f < 0 ? state : seeds + (long long)f * n_ch * n3;
-            const float px = src[nb];
-            const float py = src[n3 + nb];
-            const float pz = src[2 * n3 + nb];
-            float dx = min_image(fx - px, box, periodic);
-            float dy = min_image(fy - py, box, periodic);
-            float dz = min_image(fz - pz, box, periodic);
-            float cd = dx * dx + dy * dy + dz * dz;
-            if (has_occ && !(src[(n_ch - 1) * n3 + nb] > 0.5f)) cd = kBig;
-            if (cd < best_d) {
-              best_d = cd;
-              best[0] = px;
-              best[1] = py;
-              best[2] = pz;
 #pragma unroll
-              for (int c = 3; c < kMaxChan; ++c) {
-                if (c < n_ch) best[c] = src[c * n3 + nb];
-              }
+      for (int oy = -1; oy <= 1; ++oy) {
+#pragma unroll
+        for (int oz = -1; oz <= 1; ++oz) {
+          if (kState && ox == 0 && oy == 0 && oz == 0) continue;
+          const int off = (ox + 1) * 9 + (oy + 1) * 3 + (oz + 1);
+          const int pos = ((si * 27 + off) << 16) + f + 1;
+          const int so = (ox * kSYZ + oy * kSZ + oz) * s;
+#pragma unroll
+          for (int i = 0; i < kTX; ++i) {
+            const int j = base + i * kSYZ + so;
+            float cd = dist2<kWrap>(fx[i], fy, fz, sm[j], sm[kSCells + j],
+                                    sm[2 * kSCells + j], box, half);
+            if (kOcc && !(sm[3 * kSCells + j] > 0.5f)) cd = kBig;
+            if (cd < bd[i] || (!kState && cd == bd[i] && pos < bp[i])) {
+              bd[i] = cd;
+              bp[i] = pos;
             }
           }
         }
       }
     }
   }
+}
 
-  if (payload_out) {
-    const int n_pay = n_ch - 3 - (has_occ ? 1 : 0);
-#pragma unroll
-    for (int c = 3; c < kMaxChan; ++c) {
-      if (c < 3 + n_pay) out[(c - 3) * n3 + idx] = best[c];
+template <bool kOcc, bool kState>
+__device__ __forceinline__ void scan_field(bool min_image, const float* sm,
+                                           int f, int base,
+                                           const float (&fx)[kTX], float fy,
+                                           float fz, float (&bd)[kTX],
+                                           int (&bp)[kTX], float box,
+                                           float half) {
+  if (min_image)
+    scan<true, kOcc, kState>(sm, f, base, fx, fy, fz, bd, bp, box, half);
+  else
+    scan<false, kOcc, kState>(sm, f, base, fx, fy, fz, bd, bp, box, half);
+}
+
+template <bool kPeriodic, bool kOcc>
+__global__ void __launch_bounds__(kThreads, 4)
+nn_sweep_vals_kernel(const float* __restrict__ state,
+                     const float* __restrict__ seeds, float* __restrict__ out,
+                     int n, int n_ch, int k, int payload_out, int d2_out,
+                     float box, float cell) {
+  // x, y, z (, occ) planes of the staged field, (kSX, kSY, kSZ) each
+  extern __shared__ float sm[];
+  // wrapped grid index of each staged x plane, y row and z column
+  __shared__ int gx[kSX], gy[kSY], gz[kSZ];
+  constexpr int kNst = kOcc ? 4 : 3;
+  const long long n3 = (long long)n * n * n;
+  const int ntz = (n + kTZ - 1) / kTZ, nty = (n + kTY - 1) / kTY;
+  const int b = blockIdx.x;
+  const int z0 = (b % ntz) * kTZ;
+  const int y0 = (b / ntz % nty) * kTY;
+  const int x0 = b / (ntz * nty) * kTX;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int y = y0 + warp, z = z0 + lane;
+  const float half = 0.5f * box;
+  const float fy = ((float)y + 0.5f) * cell;
+  const float fz = ((float)z + 0.5f) * cell;
+  // the tile's centres lie in [lo, hi] on each axis (cells past n too)
+  const float lo[3] = {((float)x0 + 0.5f) * cell, ((float)y0 + 0.5f) * cell,
+                       ((float)z0 + 0.5f) * cell};
+  const float hi[3] = {((float)(x0 + kTX - 1) + 0.5f) * cell,
+                       ((float)(y0 + kTY - 1) + 0.5f) * cell,
+                       ((float)(z0 + kTZ - 1) + 0.5f) * cell};
+  // staged index of the thread's cell 0, at (kHalo, warp + kHalo, lane + kHalo)
+  const int base = (kHalo * kSY + warp + kHalo) * kSZ + lane + kHalo;
+  float fx[kTX], bd[kTX];
+  int bp[kTX];  // winner's position in the candidate order; -1: own cell
+  {
+    const int t = threadIdx.x;
+    if (t < kSX) {
+      gx[t] = wrap(x0 - kHalo + t, n);
+    } else if (t < kSX + kSY) {
+      gy[t - kSX] = wrap(y0 - kHalo + t - kSX, n);
+    } else if (t < kSX + kSY + kSZ) {
+      gz[t - kSX - kSY] = wrap(z0 - kHalo + t - kSX - kSY, n);
     }
-    if (d2_out) out[n_pay * n3 + idx] = best_d;
-  } else {
+    __syncthreads();
+  }
+
+  for (int f = -1; f < k; ++f) {
+    const float* src = f < 0 ? state : seeds + (long long)f * n_ch * n3;
+    if (f >= 0) __syncthreads();  // every read of the last field is done
+    for (int j = threadIdx.x; j < kSCells; j += kThreads) {
+      const int sx = j / kSYZ, sy = j / kSZ % kSY, sz = j % kSZ;
+      const long long g = ((long long)gx[sx] * n + gy[sy]) * n + gz[sz];
 #pragma unroll
-    for (int c = 0; c < kMaxChan; ++c) {
-      if (c < n_ch) out[c * n3 + idx] = best[c];
+      for (int c = 0; c < kNst; ++c) {
+        const long long ch = c < 3 ? c : n_ch - 1;
+        copy_async(sm + c * kSCells + j, src + ch * n3 + g);
+      }
+    }
+    copy_wait();
+    // near: every valid staged candidate is within box / 2 of every
+    // centre of the tile on each axis, rounding included (fl(hi - p) and
+    // fl(p - lo) bound every fl(c - p) and fl(p - c)), so no candidate
+    // needs a minimum image
+    int near = 1;
+    for (int j = threadIdx.x; j < kSCells; j += kThreads) {
+      bool ok = true;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float p = sm[c * kSCells + j];
+        ok = ok && hi[c] - p <= half && p - lo[c] <= half;
+      }
+      // an invalid candidate scores kBig whatever its distance
+      if (kOcc) ok = ok || !(sm[3 * kSCells + j] > 0.5f);
+      near = near && ok;
+    }
+    near = __syncthreads_and(near);
+    const bool min_image = kPeriodic && !near;
+    if (f < 0) {
+#pragma unroll
+      for (int i = 0; i < kTX; ++i) {
+        const int j = base + i * kSYZ;
+        fx[i] = ((float)(x0 + i) + 0.5f) * cell;
+        bd[i] = dist2<kPeriodic>(fx[i], fy, fz, sm[j], sm[kSCells + j],
+                                 sm[2 * kSCells + j], box, half);
+        if (kOcc && !(sm[3 * kSCells + j] > 0.5f)) bd[i] = kBig;
+        bp[i] = -1;
+      }
+      scan_field<kOcc, true>(min_image, sm, f, base, fx, fy, fz, bd, bp, box,
+                             half);
+    } else {
+      scan_field<kOcc, false>(min_image, sm, f, base, fx, fy, fz, bd, bp, box,
+                              half);
     }
   }
+
+  if (y >= n || z >= n) return;
+  // the winners' channels from the pass input, one channel of all the
+  // thread's cells at a time, so their loads are in flight together
+  const float* src[kTX];
+  long long idx[kTX], nb[kTX];
+#pragma unroll
+  for (int i = 0; i < kTX; ++i) {
+    const int x = x0 + i < n ? x0 + i : n - 1;  // past n: not written
+    idx[i] = ((long long)x * n + y) * n + z;
+    src[i] = state;
+    nb[i] = idx[i];
+    if (bp[i] >= 0) {  // decode the winner: field, stride and offset
+      const int fi = (bp[i] & 0xffff) - 1, order = bp[i] >> 16;
+      const int s = order < 27 ? 2 : 1, off = order % 27;
+      nb[i] = ((long long)wrap(x + (off / 9 - 1) * s, n) * n +
+               wrap(y + (off / 3 % 3 - 1) * s, n)) * n +
+              wrap(z + (off % 3 - 1) * s, n);
+      if (fi >= 0) src[i] = seeds + (long long)fi * n_ch * n3;
+    }
+  }
+  const int n_pay = n_ch - 3 - (kOcc ? 1 : 0);
+  const int c0 = payload_out ? 3 : 0, c1 = payload_out ? 3 + n_pay : n_ch;
+  for (int c = c0; c < c1; ++c) {
+    float v[kTX];
+#pragma unroll
+    for (int i = 0; i < kTX; ++i) v[i] = src[i][c * n3 + nb[i]];
+#pragma unroll
+    for (int i = 0; i < kTX; ++i) {
+      if (x0 + i < n) out[(c - c0) * n3 + idx[i]] = v[i];
+    }
+  }
+  if (d2_out) {
+#pragma unroll
+    for (int i = 0; i < kTX; ++i) {
+      if (x0 + i < n) out[n_pay * n3 + idx[i]] = bd[i];
+    }
+  }
+}
+
+template <bool kPeriodic, bool kOcc>
+int launch(const float* state, const float* seeds, float* out, int n,
+           int n_ch, int k, int payload_out, int d2_out, float box, float cell,
+           cudaStream_t stream) {
+  const int smem = (kOcc ? 4 : 3) * kSCells * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      nn_sweep_vals_kernel<kPeriodic, kOcc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((n + kTX - 1) / kTX) *
+                           ((n + kTY - 1) / kTY) * ((n + kTZ - 1) / kTZ);
+  nn_sweep_vals_kernel<kPeriodic, kOcc>
+      <<<(unsigned int)blocks, kThreads, smem, stream>>>(
+          state, seeds, out, n, n_ch, k, payload_out, d2_out, box, cell);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -146,15 +325,18 @@ extern "C" int nn_sweep_vals(const float* state, const float* seeds,
                              int payload_out, int d2_out, int periodic,
                              float box, float cell, void* stream) {
   if (n_ch < 3 + (has_occ ? 1 : 0) || n_ch > kMaxChan ||
-      (d2_out && !payload_out)) {
+      (d2_out && !payload_out) || n < 1 || k < 0 || k >= 0xffff) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long n3 = (long long)n * n * n;
-  const int threads = 256;
-  long long blocks = (n3 + threads - 1) / threads;
-  nn_sweep_vals_kernel<<<(unsigned int)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-      state, seeds, out, n, n_ch, k, has_occ, payload_out, d2_out, periodic,
-      box, cell);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (periodic) {
+    return has_occ ? launch<true, true>(state, seeds, out, n, n_ch, k,
+                                        payload_out, d2_out, box, cell, st)
+                   : launch<true, false>(state, seeds, out, n, n_ch, k,
+                                         payload_out, d2_out, box, cell, st);
+  }
+  return has_occ ? launch<false, true>(state, seeds, out, n, n_ch, k,
+                                       payload_out, d2_out, box, cell, st)
+                 : launch<false, false>(state, seeds, out, n, n_ch, k,
+                                        payload_out, d2_out, box, cell, st);
 }

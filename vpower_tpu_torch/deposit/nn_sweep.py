@@ -8,9 +8,10 @@ candidate strictly nearest to the cell centre; several passes are
 Jacobi iterations, each reading only the previous pass's output.
 
 On a CUDA tensor, :func:`sweep_tiles_vals` launches the hand-written
-kernel ``csrc/nn_sweep.cu`` once per pass (one thread per cell,
-neighbours read with a periodic index wrap straight from global memory;
-the source's header says what bounds it on the H100).  On a CPU tensor
+kernel ``csrc/nn_sweep.cu`` once per pass (tiles of cells staged with a
+halo in shared memory, each cell carrying its best distance and the
+winner's place in the candidate order; the source's header says what
+bounds it on the H100).  On a CPU tensor
 it runs the plain version :func:`sweep_vals_plain`, ``torch.roll``
 compares in the kernel's candidate order with the same float
 arithmetic, so the two agree bit for bit.  Any other device raises.

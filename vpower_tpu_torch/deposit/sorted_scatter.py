@@ -7,9 +7,9 @@ sorted ascending and one row of values per id, it forms
 ``out[c, id] = carry[c, id] + sum_{k: sids[k] == id} svals[k, c]``.
 
 On a CUDA tensor, :func:`deposit_sorted` launches the hand-written
-kernel ``csrc/sorted_scatter.cu`` (one thread per cell, binary search of
-its run, in-order f32 sum, no atomics; the source's header says what
-bounds it on the H100).  On a CPU tensor it runs the plain version
+kernel ``csrc/sorted_scatter.cu`` (tiles of cells in shared memory,
+one thread per run summing it in row order, coalesced plane writes, no
+atomics; the source's header says what bounds it on the H100).  On a CPU tensor it runs the plain version
 :func:`deposit_sorted_plain`, a sequential ``index_add_`` that sums each
 cell's rows in the same order, so the two agree bit for bit.  Any other
 device raises.  ``LAUNCHES`` counts kernel launches.
@@ -77,19 +77,26 @@ def deposit_sorted(sids: torch.Tensor, svals: torch.Tensor, n_cells: int,
     from .. import _build
 
     lib = _build.load("sorted_scatter")
+    size = lib.sorted_scatter_scratch
+    size.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    size.restype = ctypes.c_longlong
     fn = lib.sorted_scatter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_chan = svals.shape[1]
     out = torch.empty((n_chan, n_cells), dtype=torch.float32,
                       device=sids.device)
+    # each tile's row range, found by the kernel's first launch
+    scratch = torch.empty(size(n_chan, n_cells), dtype=torch.int64,
+                          device=sids.device)
     with torch.cuda.device(sids.device):
         stream = torch.cuda.current_stream(sids.device).cuda_stream
         rc = fn(sids.data_ptr(), svals.data_ptr(),
                 carry.data_ptr() if carry is not None else None,
-                out.data_ptr(), sids.shape[0], n_chan, n_cells, stream)
+                out.data_ptr(), scratch.data_ptr(), sids.shape[0], n_chan,
+                n_cells, stream)
     if rc != 0:
         raise RuntimeError(f"sorted_scatter kernel launch failed: "
                            f"cudaError_t {rc}")

@@ -3,7 +3,8 @@ power spectrum, sampled onto particles.
 
 PyTorch counterpart of :mod:`vpower_tpu.io.synthetic`.  Randomness
 comes only from the ``torch.Generator`` passed in, and work runs on
-``device`` (default: the generator's).  The numbers differ from
+``device`` (default: the generator's, and the card where there is no
+generator).  The numbers differ from
 ``jax.random``'s for the same seed; the filter is the same.
 """
 from __future__ import annotations
@@ -72,9 +73,10 @@ def grid_positions(
     device=None,
 ) -> torch.Tensor:
     """(N^3, 3) cell-center lattice ``(i + 1/2) * Lcell``, optionally
-    jittered uniformly by ``jitter`` cells and wrapped into the box."""
-    if device is None and generator is not None:
-        device = generator.device
+    jittered uniformly by ``jitter`` cells and wrapped into the box, on
+    ``device``: by default the generator's, or the card without one."""
+    if device is None:
+        device = generator.device if generator is not None else "cuda"
     cell = box_size / n_grid
     axis = (torch.arange(n_grid, dtype=dtype, device=device) + 0.5) * cell
     xx, yy, zz = torch.meshgrid(axis, axis, axis, indexing="ij")

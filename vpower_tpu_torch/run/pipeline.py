@@ -56,7 +56,8 @@ def deposit(particles: Particles, n_grid: int, method: str = "cic",
         return nn_interp_to_field(particles, n_grid, **kwargs)
     if method in ("cic", "sph"):
         raise NotImplementedError(
-            f"deposition method {method!r} is ported in slice 4"
+            f"deposition method {method!r} is ported in slice "
+            f"{4 if method == 'cic' else 5}"
         )
     raise ValueError(f"Unknown deposition method {method!r}")
 
@@ -67,7 +68,7 @@ def _quantity_grid(field: BoxField, quantity: str) -> torch.Tensor:
     if quantity in ("momentum", "energy"):
         raise NotImplementedError(
             f"quantity {quantity!r} is ported with the rest of the "
-            f"pipeline in slice 3"
+            f"pipeline in slice 4"
         )
     raise ValueError(
         "Unrecognized physical quantity name. "
@@ -111,10 +112,11 @@ def power_spectrum(
     with ``quantity="velocity"`` takes the velocity-only fast path
     (``rho`` is not carried through the descent)."""
     if interlace:
-        raise NotImplementedError("interlace=True is ported in slice 3")
+        raise NotImplementedError("interlace=True is ported in slice 4")
     if method not in ("nn", "ngp"):
         raise NotImplementedError(
-            f"power_spectrum(method={method!r}) is ported in slice 4"
+            f"power_spectrum(method={method!r}) is ported in slice "
+            f"{4 if method == 'cic' else 5}"
         )
     comp_order = 1 if (compensate and method == "ngp") else 0
     if compensate and comp_order == 0:
