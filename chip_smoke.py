@@ -36,13 +36,14 @@ is non-zero):
    tiles and rows per pass, the longest span); K4 (window sweep) on every
    pass of a 128^3 run of the same occupancy bitwise against its plain
    version, and on 512 random tiles of every 512^3 pass, two kernel runs
-   bitwise equal; launch counts; every cell's distance within 1e-4 cell
-   of the kd-tree's and below its nudged seed bound; Nsample exact, Psum
-   within 1e-5 of the float64 kd-tree chain, Parseval; three timed runs
-   and the stage times.
+   bitwise equal, each pass beside its bound; launch counts; every
+   cell's distance within 1e-4 cell of the kd-tree's and below its
+   nudged seed bound; Nsample exact, Psum within 1e-5 of the float64
+   kd-tree chain, Parseval; three timed runs and the stage times.
 8. index path: ``nn_assign`` at 512^3, every K3 call bitwise against its
-   plain version; misassignment on the sampled cells <= 2e-3, every miss
-   within a cell diagonal; ``nn_exact_assign`` exact on those cells.
+   plain version, beside its bound; misassignment on the sampled cells
+   <= 2e-3, every miss within a cell diagonal; three timed runs;
+   ``nn_exact_assign`` exact on those cells.
 9. ``deposit(method="nn", exact=True)`` at 160^3 (``n % 64 != 0``: the
    ring-refined index route) on 4,096,000 particles: cells farther than
    the kd-tree's NN by more than 1e-4 cell, at most 1e-5 of the cells.
@@ -693,10 +694,12 @@ def main():
                f"sampled tiles")
         ms = _time_ms(torch, lambda: nn_window.window_pass(
             s0, s1, rows, state, **kw), 3)
+        least = _k4_bound(s0, s1, rows, state, **kw)
         print(f"[K4] {N_GRID}^3 pass {i} {kw}: {K4_SAMPLE_TILES} random tiles "
               f"bitwise equal to plain, two kernel runs bitwise equal; "
-              f"kernel (whole pass) {ms:.3f} ms, plain on the "
-              f"{K4_SAMPLE_TILES} tiles {plain_s * 1e3:.1f} ms", flush=True)
+              f"kernel (whole pass) {ms:.3f} ms, bound {least[0]:.3f} ms "
+              f"({least[1]}), plain on the {K4_SAMPLE_TILES} tiles "
+              f"{plain_s * 1e3:.1f} ms", flush=True)
         del out, plain, mask
 
     # exactness at every cell: the last pass's d2 against the kd-tree
@@ -848,12 +851,13 @@ def main():
             *args, **kwargs), 3)
         plain_ms = _time_ms(torch, lambda: nn_index_sweep.sweep_index_plain(
             *args, **kwargs), 1)
+        bound = _k3_bound(*args, **kwargs)
         if n == N_GRID and k > 0:
-            k3["ms"], k3["plain_ms"] = ms, plain_ms
-            k3["bound"] = _k3_bound(*args, **kwargs)
+            k3["ms"], k3["plain_ms"], k3["bound"] = ms, plain_ms, bound
         print(f"[K3] n={n} k={k}: idx, pos and d2 bitwise equal to plain, two "
               f"runs bitwise equal; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
+              f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})",
+              flush=True)
         del out, out2, plain
     del k3_calls
     torch.cuda.empty_cache()
@@ -883,6 +887,11 @@ def main():
     _check(excess.max() / cell < math.sqrt(3.0),
            "nn_assign miss beyond a cell diagonal")
     del idx_a
+    times = _wall_runs(torch, lambda: vt.nn_assign(particles.pos, N_GRID,
+                                                   BOX))
+    print(f"[timing] nn_assign {N_GRID}^3, {n_p} particles, 3 runs after "
+          f"warm-up: min {times[0]:.4f} s, median {times[1]:.4f} s, spread "
+          f"{times[2] - times[0]:.4f} s on {smi}", flush=True)
 
     idx_x = vt.nn_exact_assign(particles.pos, N_GRID, BOX)
     idx_h = idx_x.reshape(-1)[cells_t].cpu().numpy()

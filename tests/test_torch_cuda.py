@@ -216,6 +216,104 @@ def test_nn_index_sweep_kernel_matches_plain(cuda, n, box, periodic, seeded):
         assert torch.equal(g.cpu(), r)
 
 
+def _assert_index_kernel_matches_plain(cuda, si, sp, ki, kp, box, periodic):
+    """idx, pos and d2 of the kernel bitwise equal to the plain version's
+    (the wrapper on CPU tensors), and two kernel runs bitwise equal."""
+    ref = nn_index_sweep.sweep_tiles(si, sp, ki, kp, box, periodic=periodic)
+    dev = [None if t is None else t.contiguous().to(cuda)
+           for t in (si, sp, ki, kp)]
+    before = nn_index_sweep.LAUNCHES
+    got = nn_index_sweep.sweep_tiles(*dev, box, periodic=periodic)
+    again = nn_index_sweep.sweep_tiles(*dev, box, periodic=periodic)
+    torch.cuda.synchronize()
+    assert nn_index_sweep.LAUNCHES == before + 2
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+        assert torch.equal(g, a)
+    return ref
+
+
+def test_nn_index_sweep_kernel_ties_across_fields(cuda):
+    """Seed ranks that repeat the state's positions at other offsets under
+    other indices (and, on every second x plane, each other's cell): on an
+    equal distance the first candidate in the kernel's order wins, though
+    the kernel scans the state before the seeds, and the index shows it."""
+    n, box = 20, 1.0
+    si, sp, _, _ = _index_inputs(n, box, seed=99, k=1)
+    n_p = int(si.max()) + 1
+
+    def shifted(shift, rank):
+        i = torch.roll(si, shift, (0, 1, 2))
+        return (torch.where(i >= 0, i + rank * n_p, -1).int(),
+                torch.roll(sp, shift, (1, 2, 3)))
+
+    i0, p0 = shifted((1, 0, -1), 1)
+    i1, p1 = shifted((0, 2, 1), 2)
+    i1[::2] = torch.where(i0[::2] >= 0, i0[::2] + 2 * n_p, -1).int()
+    p1[:, ::2] = p0[:, ::2]
+    ki, kp = torch.stack([i0, i1]), torch.cat([p0, p1])
+    for periodic in (True, False):
+        ref = _assert_index_kernel_matches_plain(cuda, si, sp, ki, kp, box,
+                                                 periodic)
+        # winners of all three fields, so ties of each kind were settled
+        assert set(torch.unique(ref[0][ref[0] >= 0] // n_p).tolist()) \
+            == {0, 1, 2}
+
+
+@pytest.mark.parametrize("seeded", [True, False])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("n", [3, 4, 5, 20, 36])
+def test_nn_index_sweep_kernel_small_and_ragged_grids(cuda, n, periodic,
+                                                      seeded):
+    """n below the 2-cell halo (indices wrap more than once: 3, 4, 5) and
+    n not a multiple of the 4 x 8 x 32 tile (20, 36); two passes, the
+    second from the first's output."""
+    box = 2.3 if n % 2 == 0 else 3.7
+    si, sp, ki, kp = _index_inputs(n, box, seed=n + seeded, k=2)
+    if not seeded:
+        ki = kp = None
+    for _ in range(2):
+        si, sp, _ = _assert_index_kernel_matches_plain(cuda, si, sp, ki, kp,
+                                                       box, periodic)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("case", ["faces", "anywhere", "empty"])
+def test_nn_index_sweep_kernel_faces_and_empty_cells(cuda, case, periodic):
+    """``faces``: the particles hug the box faces, so the blocks there
+    take the minimum image and the others see only empty cells.
+    ``anywhere``: a state whose positions lie anywhere in the box
+    (nothing ties a candidate to its cell), so every block divides.
+    ``empty``: most cells of state and seeds hold no candidate
+    (``idx == -1``), with a position far outside the box that must
+    neither win nor force the minimum image."""
+    n, box, k = 40, 2.3, 2
+    rng = np.random.default_rng(7 + periodic)
+    if case == "faces":
+        pos = rng.random((3000, 3)) * 0.06 * box
+        pos = np.where(rng.random(pos.shape) < 0.5, pos, box - pos)
+    else:
+        pos = rng.random((600 if case == "empty" else 20000, 3)) * box
+    pos = torch.from_numpy(pos.astype(np.float32)).clamp_(0, box * 0.999999)
+    ki, kp = tnn._seed_grids(pos, n, box, k)
+    kp = kp.reshape(3 * k, n, n, n).clone()
+    si, sp = ki[0].clone(), kp[:3].clone()
+    if case == "anywhere":
+        pick = torch.from_numpy(rng.integers(0, pos.shape[0], (n, n, n)))
+        si, sp = pick.int(), pos[pick].permute(3, 0, 1, 2).contiguous()
+        si[::3, 1::2] = -1
+    if case == "empty":
+        assert float((ki < 0).float().mean()) > 0.9
+        sp[:, si < 0] = 50.0 * box
+        for r in range(k):
+            kp[3 * r:3 * r + 3][:, ki[r] < 0] = -70.0 * box
+    ref = _assert_index_kernel_matches_plain(cuda, si, sp, ki.contiguous(),
+                                             kp, box, periodic)
+    assert (ref[0] != si).any()  # the pass did work
+    _assert_index_kernel_matches_plain(cuda, ref[0], ref[1], None, None, box,
+                                       periodic)
+
+
 def _window_inputs(n, n_pay, wrap, seed, per_cell):
     """A tier-1 pass of the port's own builders (halo 4) over uniform
     particles, ``per_cell`` of them per cell."""

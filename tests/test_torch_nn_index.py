@@ -129,9 +129,10 @@ def _interpreted_sweep(monkeypatch):
     return orig
 
 
-def _numpy_pass(si0, sp0, ki, kp, n, periodic):
+def _numpy_pass(si0, sp0, ki, kp, n, periodic, beats=np.less):
     """One K3 pass in float32 numpy (which never fuses a multiply into an
-    add): the kernel's candidate order and strict ``<``."""
+    add): the kernel's candidate order and strict ``<`` (``beats``; with
+    ``np.less_equal`` the last candidate at the least distance wins)."""
     f = np.float32
     ax = (np.arange(n, dtype=f) + f(0.5)) * f(BOX / n)
     c = [ax[:, None, None], ax[None, :, None], ax[None, None, :]]
@@ -155,7 +156,7 @@ def _numpy_pass(si0, sp0, ki, kp, n, periodic):
                 ci = np.roll(fi, sh, (0, 1, 2))
                 cp = np.roll(fp, sh, (1, 2, 3))
                 cd = score(ci, cp)
-                take = cd < bd
+                take = beats(cd, bd)
                 bi = np.where(take, ci, bi)
                 bp = np.where(take, cp, bp)
                 bd = np.where(take, cd, bd)
@@ -189,6 +190,55 @@ def test_plain_sweep_matches_pallas_kernel(n, seeded, periodic):
     for g, r in zip(got, _numpy_pass(si[0], sp[0], ki, kp, n, periodic)):
         _eq(g, r)
     assert (got[0] != torch.from_numpy(si[0])).any()  # the pass did work
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_plain_sweep_ties_match_pallas_kernel(periodic):
+    """Equal distances across fields and offsets are the rule here: both
+    seed ranks repeat the state's positions at other offsets under other
+    indices, and on every second x plane rank 1 repeats rank 0's cell.
+    The first candidate of the order (for s in (2, 1), for each offset:
+    state, then the ranks) keeps a tie, so the index tells a wrong tie
+    even where position and d2 agree.  Index and position equal the
+    interpreted Pallas kernel's bit for bit, d2 within two ulps; all
+    three equal the float32 numpy pass, whose result with ``<=`` in place
+    of ``<`` has other indices at the same d2 (the ties are real)."""
+    n = 16
+    pos, si, sp = _seeds(n, 1, seed=70 + periodic, n_p=n**3 // 6)
+    si0, sp0 = si[0], sp[0]
+    n_p = pos.shape[0]
+
+    def shifted(shift, rank):
+        i = np.roll(si0, shift, (0, 1, 2))
+        return (np.where(i >= 0, i + rank * n_p, -1).astype(np.int32),
+                np.roll(sp0, shift, (1, 2, 3)))
+
+    i0, p0 = shifted((1, 0, -1), 1)
+    i1, p1 = shifted((0, 2, 1), 2)
+    i1[::2] = np.where(i0[::2] >= 0, i0[::2] + 2 * n_p, -1)
+    p1[:, ::2] = p0[:, ::2]
+    ki = np.ascontiguousarray(np.stack([i0, i1]))
+    kp = np.ascontiguousarray(np.concatenate([p0, p1]))
+    ref = nn_pallas.sweep_tiles(
+        jnp.asarray(si0), jnp.asarray(sp0), jnp.asarray(ki), jnp.asarray(kp),
+        BOX, periodic=periodic, interpret=True)
+    got = nn_index_sweep.sweep_tiles(
+        torch.from_numpy(si0), torch.from_numpy(sp0), torch.from_numpy(ki),
+        torch.from_numpy(kp), BOX, periodic=periodic)
+    _eq(got[0], ref[0])
+    _eq(got[1], ref[1])
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=ULP2,
+                               atol=0)
+    first = _numpy_pass(si0, sp0, ki, kp, n, periodic)
+    for g, r in zip(got, first):
+        _eq(g, r)
+    last = _numpy_pass(si0, sp0, ki, kp, n, periodic, beats=np.less_equal)
+    _eq(last[2], first[2])
+    flipped = last[0] != first[0]
+    assert flipped.mean() > 0.5
+    # the state, rank 0 and rank 1 each keep ties they met first
+    for rank in range(3):
+        assert (flipped & (first[0] // n_p == rank)).any()
 
 
 def test_nn_assign_128_matches_jax_pallas_schedule(monkeypatch):

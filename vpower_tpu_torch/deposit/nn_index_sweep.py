@@ -9,11 +9,13 @@ squared distance.  Candidate order, strict ``<`` and float arithmetic
 are K2's.
 
 On a CUDA tensor, :func:`sweep_tiles` launches the hand-written kernel
-``csrc/nn_index_sweep.cu`` (one thread per cell; the source's header
-says what bounds it on the H100).  On a CPU tensor it runs the plain
-version :func:`sweep_index_plain`, ``torch.roll`` compares in the
-kernel's order with the same arithmetic, so the two agree bit for bit.
-Any other device raises.  ``LAUNCHES`` counts kernel launches.
+``csrc/nn_index_sweep.cu`` (K2's design: tiles staged in shared memory
+with a halo, the winner carried as its place in the candidate order;
+the source's header says what bounds it on the H100).  On a CPU tensor
+it runs the plain version :func:`sweep_index_plain`, ``torch.roll``
+compares in the kernel's order with the same arithmetic, so the two
+agree bit for bit.  Any other device raises.  ``LAUNCHES`` counts kernel
+launches.
 """
 from __future__ import annotations
 
