@@ -6,11 +6,12 @@
 Drives the port's paths through the entry points a user calls
 (``power_spectrum``, ``deposit``, ``spectrum_from_field``,
 ``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``) on 10,077,696
-particles and a 512^3 grid: the fast NN and the NGP velocity spectra,
-the exact NN spectrum (window sweep), and the index path.  The
-particles are made on the card from a seeded ``torch.Generator`` with
-the shapes of the JAX package's ``bench.py`` workload: a 256^3 Gaussian
-random velocity field sampled by a 216^3 lattice jittered by 3 cells.
+particles and a 512^3 grid: the fast NN, NGP and CIC (the default
+method) velocity spectra, the exact NN spectrum (window sweep), and the
+index path.  The particles are made on the card from a seeded
+``torch.Generator`` with the shapes of the JAX package's ``bench.py``
+workload: a 256^3 Gaussian random velocity field sampled by a 216^3
+lattice jittered by 3 cells.
 
 Phases (each prints a line; every failed check raises, so the exit code
 is non-zero):
@@ -29,14 +30,21 @@ is non-zero):
    Psum against host float64 chains (NGP within 1e-6, NN within 5e-3:
    the gates of bench.py); NN misassignment on 2^18 random cells against
    a scipy kd-tree, every miss within a cell diagonal; Parseval.
+   CIC: ``power_spectrum(particles, 512)`` with the default method; its
+   eight K1 calls (one a corner, each onto the rolled carry) bitwise
+   equal to the plain version run on the host with the same carry;
+   launch counts; mass conserved to 1e-6; Nsample exact; Psum within
+   1e-5 of a float64 host chain (``np.bincount`` per corner and channel,
+   pocketfft, histogram); three timed runs.
 6. timing: three timed runs of the fast NN spectrum after a warm-up, and
    the stage times of a fourth.
 7. exact: ``power_spectrum(method="nn", exact=True)`` at 512^3.  K2's
    ``d2_out`` calls bitwise against the plain version; the tiers (h1,
    tiles and rows per pass, the longest span); K4 (window sweep) on every
    pass of a 128^3 run of the same occupancy bitwise against its plain
-   version, and on 512 random tiles of every 512^3 pass, two kernel runs
-   bitwise equal, each pass beside its bound; launch counts; every
+   version, on the whole 512^3 tier-1 pass and on 512 random tiles of
+   every 512^3 pass, two kernel runs bitwise equal, each pass beside its
+   bound; launch counts; every
    cell's distance within 1e-4 cell of the kd-tree's and below its
    nudged seed bound; Nsample exact, Psum within 1e-5 of the float64
    kd-tree chain, Parseval; three timed runs and the stage times.
@@ -53,9 +61,10 @@ path's run, its largest error against the plain version, its time, the
 plain version's, the library call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (the H100 SXM's published peaks), computed from this run's
-inputs.  Then the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; refuses to run
-without one.
+inputs.  K4's operations are counted on the pairs any exact method must
+score (``_k4_needed_pairs``), not on every pair of the spans.  Then the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Needs one CUDA card; refuses to run without one.
 """
 import json
 import math
@@ -79,6 +88,8 @@ NN_RTOL = 5e-3           # NN Psum gate of bench.py:80-82
 EXACT_RTOL = 1e-5        # exact NN Psum against the float64 kd-tree chain
 EXACT_CELL_TOL = 1e-4    # cells: f32 cell-unit coordinates near 512 round
                          # at ~3e-5 cell
+CIC_RTOL = 1e-5          # CIC Psum against the float64 host chain
+CIC_MASS_RTOL = 1e-6     # CIC mass against the sum of the particle masses
 # Share of cells whose NN is misassigned.  The descent's own class at
 # this occupancy (0.075 particles per cell) is ~2.3e-2: the finest level
 # pre-merges the rank-0 seeds (nn.py _PREMERGE_MIN), which a CPU run of
@@ -114,10 +125,12 @@ def _check(cond, msg):
 
 class _Capture:
     """Record the arguments (and with ``keep``, the results) of every
-    call of ``module.name`` while forwarding it, then restore it."""
+    call of ``module.name`` while forwarding it, then restore it; with
+    ``check``, call ``check(args, kwargs, result)`` after each call."""
 
-    def __init__(self, module, name, keep=False):
+    def __init__(self, module, name, keep=False, check=None):
         self.module, self.name, self.keep = module, name, keep
+        self.check = check
         self.calls, self.results = [], []
 
     def __enter__(self):
@@ -128,6 +141,8 @@ class _Capture:
             out = self.orig(*args, **kwargs)
             if self.keep:
                 self.results.append(out)
+            if self.check is not None:
+                self.check(args, kwargs, out)
             return out
 
         setattr(self.module, self.name, wrapper)
@@ -179,6 +194,18 @@ def _time_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _timed(torch, fn):
+    """``fn()`` and its ms by CUDA events, one call (warmed up before)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def _wall_runs(torch, fn, reps=3):
@@ -243,6 +270,31 @@ def _host_ngp_power(pos, vel, mass, n_grid, box_size):
     return _host_power(v.reshape((3,) + (n_grid,) * 3), box_size)
 
 
+def _host_cic_power(pos, vel, mass, n_grid, box_size):
+    """float64 CIC velocity power grid on the host: np.bincount of
+    [m v, m] per corner, v = p / m (zero in empty cells); and the total
+    mass on the grid."""
+    u = pos / (box_size / n_grid) - 0.5
+    base = np.floor(u).astype(np.int64)
+    frac = u - base
+    cols = [mass * vel[:, c] for c in range(3)] + [mass]
+    grid = np.zeros((4, n_grid**3))
+    for d in np.ndindex(2, 2, 2):
+        w = np.ones(len(pos))
+        for a in range(3):
+            w *= frac[:, a] if d[a] else 1.0 - frac[:, a]
+        ijk = (base + np.asarray(d)) % n_grid
+        flat = (ijk[:, 0] * n_grid + ijk[:, 1]) * n_grid + ijk[:, 2]
+        for c in range(4):
+            grid[c] += np.bincount(flat, weights=w * cols[c],
+                                   minlength=n_grid**3)
+    msum = grid[3]
+    safe = np.where(msum > 0, msum, 1.0)
+    v = np.where(msum > 0, grid[:3] / safe, 0.0)
+    return _host_power(v.reshape((3,) + (n_grid,) * 3), box_size), \
+        float(msum.sum())
+
+
 def _host_nn_query(tree, n_grid, box_size, slab=32):
     """Exact NN of every cell centre in a kd-tree, a slab of x at a time
     (the recipe of benchmarks/make_golden.py): ``(distance, index)``,
@@ -304,13 +356,58 @@ def _k3_bound(state_idx, state_pos, seed_idx, seed_pos, *_, **__):
                   + 20 * n3, n3 * (52 + 54 * k) * CAND_OPS)
 
 
-def _k4_bound(s0, s1, rows, state, zc, **_):
-    """Every row of a tile's span scored against the tile's 8 x 8 x zc
-    cells; the rows in spans, the spans and the state read once, the
-    state written once."""
+def _k4_needed_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay,
+                     halo=16, tiles_per_step=1024):
+    """Pairs any exact method must score: per cell, the rows of its
+    tile's span whose z lies within sqrt(bd_in) of the cell centre.
+    Counted on the card from a per-tile histogram of row z in whole cells
+    (tile z extent +- ``halo``) and its prefix sum, taking only the cells
+    wholly inside (qz - r, qz + r), so the count is a lower bound."""
+    from vpower_tpu_torch.deposit import nn_window
+
+    nt = nn_window._ntiles(n_grid, zc)
+    n_t = nt[0] * nt[1] * nt[2]
+    dev = rows.device
+    width = zc + 2 * halo
+    lens = (s1 - s0).long()
+    tiles = torch.repeat_interleave(torch.arange(n_t, device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    idx = s0.long()[tiles] + torch.arange(tiles.shape[0], device=dev) \
+        - first[tiles]
+    tz = tiles % nt[2]
+    b = torch.floor(rows[2][idx]).long() - tz * zc + halo
+    ok = (b >= 0) & (b < width)
+    hist = torch.bincount(tiles[ok] * width + b[ok], minlength=n_t * width)
+    cum = torch.cat([torch.zeros((n_t, 1), dtype=torch.long, device=dev),
+                     torch.cumsum(hist.reshape(n_t, width), 1)], 1)
+    del tiles, first, idx, tz, b, ok, hist
+    bd = nn_window._tile_major(state[n_pay:], nt, zc)[0]  # (T, 8, 8, zc)
+    total = 0
+    for t0 in range(0, n_t, tiles_per_step):
+        t1 = min(n_t, t0 + tiles_per_step)
+        r = torch.sqrt(bd[t0:t1].double().clamp_min(0))
+        qz = (torch.arange(zc, device=dev) + 0.5).double()
+        lo = torch.floor(qz - r).long() + 1 + halo         # first whole cell
+        hi = torch.ceil(qz + r).long() - 2 + halo          # last whole cell
+        lo, hi = lo.clamp(0, width), hi.clamp(-1, width - 1)
+        c = cum[t0:t1].reshape(t1 - t0, 1, 1, 1, width + 1).expand(
+            -1, 8, 8, zc, -1)
+        cnt = torch.gather(c, 4, (hi + 1).clamp_min(0)[..., None])[..., 0] \
+            - torch.gather(c, 4, lo.clamp_max(width)[..., None])[..., 0]
+        total += int(torch.where(hi >= lo, cnt, 0).sum())
+    return total
+
+
+def _k4_bound(torch, s0, s1, rows, state, n_grid, zc, n_pay, **_):
+    """The rows in spans, the spans and the state read once, the state
+    written once; 9 operations on each pair any exact method must score.
+    Returns the bound and both pair counts: every span row against its
+    tile's 8 x 8 x zc cells, and the needed ones."""
     span = int((s1 - s0).long().sum())
-    return _bound(_nbytes(s0, s1) + 4 * rows.shape[0] * span
-                  + 2 * _nbytes(state), span * 64 * zc * CAND_OPS)
+    needed = _k4_needed_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay)
+    bound = _bound(_nbytes(s0, s1) + 4 * rows.shape[0] * span
+                   + 2 * _nbytes(state), needed * CAND_OPS)
+    return bound, span * 64 * zc, needed
 
 
 def _build_all(names):
@@ -601,6 +698,78 @@ def main():
     parseval("NGP", field_ngp.velocity)
     del v_nn, field_ngp
 
+    # CIC, the default method: its eight K1 calls held to the plain
+    # version on the host (a sequential index_add_ in row order) with the
+    # same carry
+    def k1_check(args, kwargs, out):
+        sids, svals, n_cells = args
+        carry = kwargs.get("carry")
+        ref = sorted_scatter.deposit_sorted_plain(
+            sids.cpu(), svals.cpu(), n_cells,
+            None if carry is None else carry.cpu())
+        _check(torch.equal(out.cpu(), ref), "a K1 call of the CIC deposit "
+               "differs from its plain version")
+
+    t0 = time.perf_counter()
+    with _Capture(sorted_scatter, "deposit_sorted",
+                  check=k1_check) as cic_k1:
+        field_cic = vt.deposit(particles, N_GRID)
+    torch.cuda.synchronize()
+    n_carry = sum(kw.get("carry") is not None for _, kw in cic_k1.calls)
+    _check(len(cic_k1.calls) == 8 and n_carry == 7,
+           f"CIC made {len(cic_k1.calls)} K1 calls ({n_carry} with carry), "
+           f"not 8 (7)")
+    m_grid = float(field_cic.mass.double().sum())
+    m_true = float(particles.mass.double().sum())
+    mass_rel = abs(m_grid - m_true) / m_true
+    (sids, svals, n_cells), kw = cic_k1.calls[-1]
+    carry = kw["carry"]
+    ids64, vals_t = sids.long(), svals.T
+    cic_k1_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+        sids, svals, n_cells, carry=carry), 5)
+    cic_plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
+        sids, svals, n_cells, carry), 5)
+    cic_lib_ms = _time_ms(torch, lambda: carry.index_add(1, ids64, vals_t), 5)
+    cic_bound = _bound(_nbytes(sids, svals, carry) + 4 * carry.numel(),
+                       svals.numel())
+    print(f"[CIC] deposit(particles, {N_GRID}) (default method): 8 K1 calls "
+          f"of {tuple(svals.shape)} rows, each bitwise equal to the plain "
+          f"version on the host with the same carry; mass on the grid rel "
+          f"err {mass_rel:.3e} (gate {CIC_MASS_RTOL}); one corner with carry: "
+          f"kernel {cic_k1_ms:.3f} ms, plain {cic_plain_ms:.3f} ms, "
+          f"carry.index_add {cic_lib_ms:.3f} ms, bound {cic_bound[0]:.3f} ms "
+          f"({cic_bound[1]}); {time.perf_counter() - t0:.1f} s", flush=True)
+    _check(mass_rel <= CIC_MASS_RTOL, f"CIC mass rel err {mass_rel:.3e}")
+    del cic_k1, kw, sids, svals, carry, ids64, vals_t, field_cic
+    torch.cuda.empty_cache()
+
+    sorted_scatter.LAUNCHES = 0
+    torch.cuda.synchronize()
+    spec_cic = vt.power_spectrum(particles, N_GRID)
+    torch.cuda.synchronize()
+    print(f"[CIC] spectrum run launches: K1 {sorted_scatter.LAUNCHES}",
+          flush=True)
+    _check(sorted_scatter.LAUNCHES == 8, "the CIC run did not launch K1 "
+           "once a corner")
+    _check(np.isfinite(spec_cic.Psum).all() and len(spec_cic) == N_GRID // 2,
+           "CIC spectrum not finite or wrong length")
+    _check(np.array_equal(spec_cic.Nsample, nsamp_host.astype(np.float64)),
+           "CIC Nsample differs from the host histogram")
+    t0 = time.perf_counter()
+    cic_power, m_host = _host_cic_power(pos_h, vel_h, mass_h, N_GRID, BOX)
+    psum_cic, _ = _host_shell_bin(N_GRID, BOX, cic_power)
+    del cic_power
+    errs["CIC"] = psum_err(spec_cic, psum_cic)
+    print(f"[CIC] Nsample bit-exact; Psum max rel err vs the float64 host "
+          f"chain {errs['CIC']:.3e} (gate {CIC_RTOL}); host mass "
+          f"{m_host:.9e} vs particles {m_true:.9e}; host chain "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _check(errs["CIC"] <= CIC_RTOL, f"CIC Psum rel err {errs['CIC']:.3e}")
+    times = _wall_runs(torch, lambda: vt.power_spectrum(particles, N_GRID))
+    print(f"[timing] CIC spectrum {N_GRID}^3, {n_p} particles, 3 runs after "
+          f"warm-up: min {times[0]:.4f} s, median {times[1]:.4f} s, spread "
+          f"{times[2] - times[0]:.4f} s on {smi}", flush=True)
+
     # ---- 6. timing -------------------------------------------------
     times = _wall_runs(torch, lambda: vt.power_spectrum(particles, N_GRID,
                                                         method="nn"))
@@ -664,7 +833,8 @@ def main():
              or "none"), flush=True)
     del t2_calls, pc_calls
 
-    # K4 on 512 random tiles of every 512^3 pass; two kernel runs equal
+    # K4 on 512 random tiles of every 512^3 pass and on the whole tier-1
+    # pass; two kernel runs equal
     zc = nn_window._zc(N_GRID)
     nt = nn_window._ntiles(N_GRID, zc)
     k4 = {"err": 0.0}
@@ -692,15 +862,33 @@ def main():
                                          .abs().max()))
         _check(same, f"K4 pass {i} differs from its plain version on the "
                f"sampled tiles")
+        del plain, mask
         ms = _time_ms(torch, lambda: nn_window.window_pass(
             s0, s1, rows, state, **kw), 3)
-        least = _k4_bound(s0, s1, rows, state, **kw)
+        least, pairs, needed = _k4_bound(torch, s0, s1, rows, state, **kw)
+        span_ops_ms = pairs * CAND_OPS / FP32_OPS_PER_S * 1e3
+        whole = ""
+        if i == 0:
+            # the tier-1 pass whole: every cell against the plain version
+            plain, plain_ms = _timed(
+                torch, lambda: nn_window.window_pass_plain(
+                    s0, s1, rows, state, **kw))
+            k4["err"] = max(k4["err"], float((out - plain).abs().max()))
+            _check(torch.equal(out, plain), "K4 512^3 tier-1 pass differs "
+                   "from its plain version")
+            k4.update(ms=ms, plain_ms=plain_ms, bound=least)
+            whole = (f"; the whole pass bitwise equal to plain, plain "
+                     f"{plain_ms:.1f} ms")
+            del plain
         print(f"[K4] {N_GRID}^3 pass {i} {kw}: {K4_SAMPLE_TILES} random tiles "
-              f"bitwise equal to plain, two kernel runs bitwise equal; "
-              f"kernel (whole pass) {ms:.3f} ms, bound {least[0]:.3f} ms "
-              f"({least[1]}), plain on the {K4_SAMPLE_TILES} tiles "
-              f"{plain_s * 1e3:.1f} ms", flush=True)
-        del out, plain, mask
+              f"bitwise equal to plain, two kernel runs bitwise equal{whole}; "
+              f"kernel (whole pass) {ms:.3f} ms; pairs: {pairs} in the spans "
+              f"({span_ops_ms:.3f} ms at {CAND_OPS} operations each), "
+              f"{needed} that an exact method must score; bound "
+              f"{least[0]:.3f} ms ({least[1]}, on the needed pairs); plain "
+              f"on the {K4_SAMPLE_TILES} tiles {plain_s * 1e3:.1f} ms",
+              flush=True)
+        del out
 
     # exactness at every cell: the last pass's d2 against the kd-tree
     # distance, and below the nudged seed bound of the first pass
@@ -742,9 +930,6 @@ def main():
             s0, s1, rows, state, **kw), 3)
         plain_ms = _time_ms(torch, lambda: nn_window.window_pass_plain(
             s0, s1, rows, state, **kw), 1)
-        if i == 0:
-            k4["ms"], k4["plain_ms"] = ms, plain_ms
-            k4["bound"] = _k4_bound(s0, s1, rows, state, **kw)
         print(f"[K4] {N_SMALL}^3 pass {i} {kw}, "
               f"{N_SMALL_LATTICE**3} particles: bitwise equal to plain; "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)

@@ -314,9 +314,10 @@ def test_nn_index_sweep_kernel_faces_and_empty_cells(cuda, case, periodic):
                                        periodic)
 
 
-def _window_inputs(n, n_pay, wrap, seed, per_cell):
+def _window_inputs(n, n_pay, wrap, seed, per_cell, d2_scale=40.0):
     """A tier-1 pass of the port's own builders (halo 4) over uniform
-    particles, ``per_cell`` of them per cell."""
+    particles, ``per_cell`` of them per cell; input d2 uniform in
+    ``[0, d2_scale)`` cell^2."""
     rng = np.random.default_rng(seed)
     zc = nn_window._zc(n)
     pos_c = torch.from_numpy((rng.random((int(per_cell * n**3), 3)) * n)
@@ -327,9 +328,21 @@ def _window_inputs(n, n_pay, wrap, seed, per_cell):
         nn_window._tier1_count(pos_c, n, zc, 4, True))
     rows, s0, s1 = nn_window._tier1_build(pos_c, vals, n, zc, 4, True, n_rows,
                                           apply_shift=not wrap)
-    d2 = torch.from_numpy((rng.random((n,) * 3) * 40).astype(np.float32))
+    d2 = torch.from_numpy((rng.random((n,) * 3) * d2_scale)
+                          .astype(np.float32))
     state = torch.cat([torch.zeros((n_pay,) + (n,) * 3), d2[None]])
     return s0, s1, rows, state, zc
+
+
+def _assert_window_kernel_matches_plain(cuda, s0, s1, rows, state, **kw):
+    ref = nn_window.window_pass(s0, s1, rows, state, **kw)
+    before = nn_window.LAUNCHES
+    got = nn_window.window_pass(s0.to(cuda), s1.to(cuda), rows.to(cuda),
+                                state.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert nn_window.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), ref)
+    return ref
 
 
 @pytest.mark.parametrize("n,n_pay,wrap,per_cell", [
@@ -341,14 +354,97 @@ def test_window_sweep_kernel_matches_plain(cuda, n, n_pay, wrap, per_cell):
                                              per_cell)
     if per_cell > 0.05:
         assert int((s1 - s0).max()) > 512
-    kw = dict(n_grid=n, zc=zc, n_pay=n_pay, wrap=wrap)
-    ref = nn_window.window_pass(s0, s1, rows, state, **kw)
-    before = nn_window.LAUNCHES
-    got = nn_window.window_pass(s0.to(cuda), s1.to(cuda), rows.to(cuda),
-                                state.to(cuda), **kw)
-    torch.cuda.synchronize()
-    assert nn_window.LAUNCHES == before + 1
+    ref = _assert_window_kernel_matches_plain(
+        cuda, s0, s1, rows, state, n_grid=n, zc=zc, n_pay=n_pay, wrap=wrap)
     assert (ref[n_pay] < state[n_pay]).any()  # candidates did win
+
+
+def _filter_drop_share(s0, s1, rows, state, n, zc, n_pay, zb=32):
+    """Share of (row, block of 8 x 8 x zb cells) pairs whose row lies
+    farther from every cell centre of the block than the block's largest
+    input d2: the rows a wrap-free pass need not scan."""
+    nt = nn_window._ntiles(n, zc)
+    bmax = nn_window._tile_major(state[n_pay:], nt, zc)[0].reshape(
+        -1, 8, 8, zc // zb, zb).amax(dim=(1, 2, 4))          # (T, segs)
+    lens = (s1 - s0).long()
+    tiles = torch.repeat_interleave(torch.arange(lens.shape[0]), lens)
+    idx = torch.cat([torch.arange(int(a), int(b))
+                     for a, b in zip(s0, s1) if b > a])
+    tx = tiles // (nt[1] * nt[2])
+    ty = (tiles // nt[2]) % nt[1]
+    tz = tiles % nt[2]
+    dropped = 0
+    for seg in range(zc // zb):
+        lo = [tx * 8 + 0.5, ty * 8 + 0.5, tz * zc + seg * zb + 0.5]
+        hi = [tx * 8 + 7.5, ty * 8 + 7.5, tz * zc + seg * zb + zb - 0.5]
+        m2 = sum(torch.clamp(torch.maximum(lo[a] - rows[a][idx],
+                                           rows[a][idx] - hi[a]), min=0) ** 2
+                 for a in range(3))
+        dropped += int((m2 >= bmax[tiles, seg]).sum())
+    return dropped / (idx.shape[0] * (zc // zb))
+
+
+@pytest.mark.parametrize("n,n_pay,wrap", [
+    (64, 0, False), (64, 5, True), (128, 3, False), (192, 3, False)])
+def test_window_sweep_kernel_seed_like_state(cuda, n, n_pay, wrap):
+    """Input d2 of a few cell^2, as the exact path's seed bound leaves it
+    at 0.075 particles per cell, so that most rows cannot win: the
+    block filter (wrap-free passes) and the thread skip drop them.  Every
+    tile compared (zc = 64 at 64^3 and 192^3, 128 at 128^3); a 64^3 grid
+    has one tile along z, the case where the exact path takes the
+    minimum image in the kernel."""
+    s0, s1, rows, state, zc = _window_inputs(n, n_pay, wrap, 7 * n + n_pay,
+                                             0.075, d2_scale=4.0)
+    state[n_pay] += 0.5
+    if not wrap:
+        assert _filter_drop_share(s0, s1, rows, state, n, zc, n_pay) > 0.5
+    ref = _assert_window_kernel_matches_plain(
+        cuda, s0, s1, rows, state, n_grid=n, zc=zc, n_pay=n_pay, wrap=wrap)
+    assert (ref[n_pay] < state[n_pay]).float().mean() > 0.1
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_window_sweep_kernel_empty_spans_and_unbeaten_cells(cuda, wrap):
+    """Every third tile has an empty span (s0 == s1) and keeps its input
+    state; cells with input d2 = 0 cannot be beaten (strict <) and keep
+    their input payload, which is random here, as does every cell of an
+    empty tile."""
+    n, n_pay = 128, 4
+    s0, s1, rows, state, zc = _window_inputs(n, n_pay, wrap, 11, 0.06,
+                                             d2_scale=6.0)
+    s1 = torch.where(torch.arange(s1.shape[0]) % 3 == 0, s0, s1)
+    rng = np.random.default_rng(12)
+    state[:n_pay] = torch.from_numpy(
+        rng.standard_normal((n_pay,) + (n,) * 3).astype(np.float32))
+    zero = torch.from_numpy(rng.random((n,) * 3) < 0.2)
+    state[n_pay][zero] = 0.0
+    ref = _assert_window_kernel_matches_plain(
+        cuda, s0, s1, rows, state, n_grid=n, zc=zc, n_pay=n_pay, wrap=wrap)
+    assert torch.equal(ref[:, zero], state[:, zero])
+    empty = nn_window._grid_major(
+        (torch.arange(s1.shape[0]) % 3 == 0).float().reshape(1, -1, 1, 1, 1)
+        .expand(1, -1, 8, 8, zc).contiguous(), nn_window._ntiles(n, zc),
+        zc)[0] > 0
+    assert torch.equal(ref[:, empty], state[:, empty])
+    assert (ref[n_pay][~empty & ~zero] < state[n_pay][~empty & ~zero]).any()
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_window_sweep_kernel_ties_keep_first_row(cuda, periodic):
+    """Every position twice, under two indices: the two copies tie
+    exactly in every cell, and the copy first in span order (the lower
+    index: replicas are sorted by particle index) must win, which the
+    index payload of nn_exact_assign shows.  Card equal to the CPU run."""
+    rng = np.random.default_rng(21)
+    pos = rng.random((3000, 3), np.float32)
+    both = torch.from_numpy(np.concatenate([pos, pos]))
+    ref = nn_window.nn_exact_assign(both, 64, 1.0, periodic=periodic)
+    assert int(ref.max()) < pos.shape[0]
+    before = nn_window.LAUNCHES
+    got = nn_window.nn_exact_assign(both.to(cuda), 64, 1.0,
+                                    periodic=periodic)
+    torch.cuda.synchronize()
+    assert nn_window.LAUNCHES > before
     assert torch.equal(got.cpu(), ref)
 
 
@@ -410,6 +506,24 @@ def test_ngp_spectrum_on_card_matches_cpu(cuda):
     s_gpu = tpipe.power_spectrum(p.to(cuda), 64, method="ngp")
     np.testing.assert_array_equal(s_gpu.Nsample, s_cpu.Nsample)
     np.testing.assert_allclose(s_gpu.Psum, s_cpu.Psum, rtol=1e-5)
+
+
+def test_cic_deposit_on_card_matches_cpu(cuda):
+    """deposit_cic: one sort, eight K1 launches, each accumulating onto
+    the rolled carry; the card run equals the CPU run (K1's plain version)
+    bit for bit."""
+    from vpower_tpu_torch.deposit.scatter import deposit_cic
+
+    rng = np.random.default_rng(13)
+    pos = torch.from_numpy(rng.random((60_000, 3), np.float32) * 2.0)
+    vals = torch.from_numpy(rng.standard_normal((60_000, 4))
+                            .astype(np.float32))
+    ref = deposit_cic(pos, vals, 64, 2.0)
+    before = sorted_scatter.LAUNCHES
+    got = deposit_cic(pos.to(cuda), vals.to(cuda), 64, 2.0)
+    torch.cuda.synchronize()
+    assert sorted_scatter.LAUNCHES == before + 8
+    assert torch.equal(got.cpu(), ref)
 
 
 def test_wrapper_raises_on_non_contiguous(cuda):

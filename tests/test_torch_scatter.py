@@ -14,13 +14,14 @@ import jax.numpy as jnp
 from vpower_tpu.core.particles import Particles as JParticles
 from vpower_tpu.deposit import mxu_scatter
 from vpower_tpu.deposit import nn as jnn
+from vpower_tpu.deposit.scatter import deposit_cic as j_deposit_cic
 from vpower_tpu.deposit.scatter import deposit_ngp as j_deposit_ngp
 from vpower_tpu.run import pipeline as jpipe
 from vpower_tpu_torch.core.particles import Particles
 from vpower_tpu_torch.deposit import nn as tnn
 from vpower_tpu_torch.deposit import sorted_scatter
-from vpower_tpu_torch.deposit.scatter import cell_index, deposit_ngp, \
-    sort_by_cell
+from vpower_tpu_torch.deposit.scatter import cell_index, deposit_cic, \
+    deposit_ngp, sort_by_cell
 from vpower_tpu_torch.run import pipeline as tpipe
 
 torch.set_num_threads(1)
@@ -147,15 +148,131 @@ def test_ngp_spectrum_matches_jax():
 
 
 def test_unported_options_raise():
+    """SPH, interlacing and the momentum / energy quantities are not
+    ported yet: each raises and names its ROADMAP item.  CIC (the default
+    method) and exact NN answer."""
     p, _ = _particles(100, 22)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpipe.deposit(p, 8, method="cic")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
+        tpipe.deposit(p, 8, method="sph")
+    with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
+        tpipe.power_spectrum(p, 8, method="sph")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         tpipe.power_spectrum(p, 8, method="ngp", interlace=True)
-    # exact NN is ported (tests/test_torch_nn_window.py, _nn_index.py)
-    field = tpipe.deposit(p, 8, method="nn", exact=True)
-    assert field.velocity.shape == (3, 8, 8, 8)
-    assert bool(torch.isfinite(field.velocity).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6a"):
+        tpipe.power_spectrum(p, 8, method="ngp", quantity="momentum")
+    for field in (tpipe.deposit(p, 8), tpipe.deposit(p, 8, method="nn",
+                                                     exact=True)):
+        assert field.velocity.shape == (3, 8, 8, 8)
+        assert bool(torch.isfinite(field.velocity).all())
+
+
+def _cic_f64(pos, vals, n, box, axis_vals=(0, 1)):
+    """float64 numpy CIC of (N, C) ``vals``: the deposit and the sum of
+    the absolute terms of each cell, (C, n, n, n) each."""
+    u = pos.astype(np.float64) / (box / n) - 0.5
+    base = np.floor(u).astype(np.int64)
+    frac = u - base
+    out = np.zeros((vals.shape[1], n**3))
+    absout = np.zeros_like(out)
+    for d in ((a, b, c) for a in axis_vals for b in axis_vals
+              for c in axis_vals):
+        w = np.prod([frac[:, a] if d[a] else 1.0 - frac[:, a]
+                     for a in range(3)], axis=0)
+        ijk = (base + np.asarray(d)) % n
+        flat = (ijk[:, 0] * n + ijk[:, 1]) * n + ijk[:, 2]
+        for c in range(vals.shape[1]):
+            np.add.at(out[c], flat, w * vals[:, c])
+            np.add.at(absout[c], flat, np.abs(w * vals[:, c]))
+    shape = (vals.shape[1], n, n, n)
+    return out.reshape(shape), absout.reshape(shape)
+
+
+@pytest.mark.parametrize("n,box,engine", [(16, 1.0, "xla"),
+                                          (24, 2.5, "xla"),
+                                          (32, 1.0, "xla"),
+                                          (32, 1.0, "mxu_interpret")])
+def test_cic_matches_jax(n, box, engine):
+    """deposit_cic (one sort, eight K1 deposits rolled into place)
+    against the JAX deposit_cic on the same float32 inputs, through its
+    segment sum and through its interpreted Pallas kernel (which tiles
+    no grid below 32^3): each cell
+    within 1e-6 of its float64 sum of |terms| (the sum order differs by
+    design); mass conserved to 1e-6 relative."""
+    rng = np.random.default_rng(n + int(10 * box))
+    n_p = 6000
+    pos = (rng.random((n_p, 3)) * box * 1.02 - 0.01 * box).astype(np.float32)
+    vals = np.concatenate([rng.standard_normal((n_p, 3)),
+                           rng.random((n_p, 1)) + 0.5], axis=1) \
+        .astype(np.float32)
+    got = deposit_cic(torch.from_numpy(pos), torch.from_numpy(vals), n,
+                      box).numpy()
+    ref = np.asarray(j_deposit_cic(jnp.asarray(pos), jnp.asarray(vals), n,
+                                   box, engine=engine))
+    _, absref = _cic_f64(pos, vals, n, box)
+    assert got.shape == ref.shape == (4, n, n, n)
+    assert np.all(np.abs(got.astype(np.float64) - ref) <= 1e-6 * absref)
+    mass = vals[:, 3].astype(np.float64).sum()
+    assert abs(got[3].astype(np.float64).sum() - mass) <= 1e-6 * mass
+    got1 = deposit_cic(torch.from_numpy(pos), torch.from_numpy(vals[:, 3]), n,
+                       box)
+    assert got1.shape == (n, n, n)
+    assert torch.equal(got1, torch.from_numpy(got[3]))
+
+
+def test_offsets_rolled_matches_sum_of_rolls():
+    """The rolled wrapper on a non-CIC lattice (-1, 0, 1)^3 (the shape SPH
+    footprints take) against a float64 sum of rolled deposits."""
+    n, n_p = 12, 3000
+    rng = np.random.default_rng(31)
+    sids = np.sort(rng.integers(0, n**3, n_p)).astype(np.int32)
+    svals = rng.standard_normal((n_p, 2)).astype(np.float32)
+    wts = rng.random((27, n_p)).astype(np.float32)
+    offs = sorted_scatter.snake_offsets((-1, 0, 1))
+    assert len(set(offs)) == 27
+    for a, b in zip(offs, offs[1:]):
+        assert sum(abs(p - q) for p, q in zip(a, b)) == 1
+
+    def weight(d):
+        return torch.from_numpy(wts[(d[0] + 1) * 9 + (d[1] + 1) * 3 + d[2]
+                                    + 1])
+
+    got = sorted_scatter.deposit_offsets_rolled(
+        torch.from_numpy(sids), torch.from_numpy(svals), weight, (-1, 0, 1),
+        n).numpy()
+    ref = np.zeros((2, n, n, n))
+    absref = np.zeros_like(ref)
+    for d in offs:
+        w = wts[(d[0] + 1) * 9 + (d[1] + 1) * 3 + d[2] + 1]
+        for c in range(2):
+            g = np.zeros(n**3)
+            a = np.zeros(n**3)
+            np.add.at(g, sids, (svals[:, c] * w).astype(np.float64))
+            np.add.at(a, sids, np.abs(svals[:, c] * w).astype(np.float64))
+            ref[c] += np.roll(g.reshape(n, n, n), d, axis=(0, 1, 2))
+            absref[c] += np.roll(a.reshape(n, n, n), d, axis=(0, 1, 2))
+    assert np.all(np.abs(got - ref) <= 1e-6 * absref)
+
+
+def test_default_method_deposit_and_spectrum_match_jax():
+    """deposit(p, n) and power_spectrum(p, n) with no method (CIC in both
+    packages): fields as CIC above, Nsample equal, Psum rtol 1e-5."""
+    p, pj = _particles(20000, 23)
+    f = tpipe.deposit(p, 32)
+    fj = jpipe.deposit(pj, 32)
+    _, absref = _cic_f64(p.pos.numpy(), np.concatenate(
+        [p.vel.numpy() * p.mass.numpy()[:, None], p.mass.numpy()[:, None]],
+        axis=1), 32, 1.0)
+    assert np.all(np.abs(f.mass.numpy().astype(np.float64)
+                         - np.asarray(fj.mass)) <= 1e-6 * absref[3])
+    mass = p.mass.double().sum().item()
+    assert abs(f.mass.double().sum().item() - mass) <= 1e-6 * mass
+    s = tpipe.power_spectrum(p, 32)
+    sj = jpipe.power_spectrum(pj, 32)
+    np.testing.assert_array_equal(s.Nsample, sj.Nsample)
+    np.testing.assert_allclose(s.Psum, sj.Psum, rtol=1e-5)
+    sc = tpipe.power_spectrum(p, 32, compensate=True)
+    scj = jpipe.power_spectrum(pj, 32, compensate=True)
+    np.testing.assert_allclose(sc.Psum, scj.Psum, rtol=1e-5)
 
 
 def test_wrapper_checks_inputs():

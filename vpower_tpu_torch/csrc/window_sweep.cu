@@ -17,35 +17,71 @@
 // (deposit/nn_window.py:window_pass_plain) computes the same, so the two
 // agree bit for bit.
 //
-// What bounds it on the H100: FP32 issue.  A pass is one compare per
-// (cell, row of its tile's span) pair: at 512^3 with 10M particles,
-// ~134M cells x ~2,000 rows, ~2.6e11 pairs.  Shared memory and DRAM are
-// far from the limit: a tile's span (~2,000 rows of 32 B) is read once
-// per block from L2, the state once in and once out (~5 GB at 512^3).
-// Measured on an H100 80GB HBM3 at a 700 W limit: the 512^3 tier-1
-// pass (32.3M rows, 2.65e11 pairs, 4 payload channels) in 0.141 s, about
-// half the card's FP32 issue rate at ~9 instructions a pair.
+// What bounds it on the H100: instruction issue.  Scored in full, a pass
+// is one distance and one compare per (cell, row of its tile's span)
+// pair: at 512^3 with 10M particles ~134M cells x ~2,000 rows, 2.65e11
+// pairs.  A first design did exactly that, with the winner's payload
+// copied on every win (1 + n_pay selects a pair), and took 141 ms on an
+// H100 80GB HBM3 at a 700 W limit.  Most of those pairs cannot win: a
+// block holds 32 of its tile's 128 z cells, and a row farther from all
+// of them than the block's largest running best is dead.  The bytes are
+// few beside the pairs: the state read and written once (~5 GB at
+// 512^3), each span read from L2 once per block.
 //
-// Design: one block of 256 threads per (8, 8, 32) cells, i.e. per tile
-// and z segment.  A thread owns the 8 cells (x, y, z0 + 4j), j < 8, so
-// dx*dx + dy*dy of a row is computed once for its 8 cells (the sum is
-// left to right, so this is the same arithmetic), and keeps
-// [payload..., d2] of its cells in registers (the payload count is a
-// template parameter).  The span streams through shared memory in
-// chunks of 512 rows, channel-major (each channel of a chunk is one
-// coalesced load); every thread scans each chunk in order, so "first in
-// span order wins a tie" holds as in the TPU kernel.
+// Design: one block of 64 * kZT threads per (8, 8, kZB) cells (a tile
+// and a z segment); a thread owns kCPT cells of one column, kZT apart in
+// z (so a warp's loads and stores of the state are runs of kZT words), a
+// warp 32 / kZT columns in a kWX x kWY patch.  Each exactness
+// argument rests on two facts: rounding is monotone, and bd only falls
+// during a pass, so a bound taken early stays an upper bound.
+//  1. A cell carries its best d2 and the winner's span position, not
+//     its payload: one compare and two selects a pair whatever n_pay
+//     is.  A cell that some row beat gathers the payload once at the
+//     end from `rows`; a cell that no row beat keeps its input payload.
+//     The scan order and the strict < are unchanged, so the same row
+//     wins.
+//  2. Wrap-free passes stage a row only if it can beat some cell of the
+//     block: with B the largest input bd of the block and m_a the
+//     distance from the row to the block's nearest cell centre on axis
+//     a (0 inside), computed with the scan's own float operations, the
+//     row is dropped iff (m_x^2 + m_y^2) + m_z^2 >= B.  That sum is a
+//     lower bound of the d2 the scan would compute for every cell of
+//     the block.  The kept rows are compacted in span order (ballot and
+//     popc within a warp, warp totals through shared memory) into a
+//     chunk of shared memory, [x, y, z, position] as one float4 a row,
+//     which every thread then scans in order.  Wrap passes stage every
+//     row.
+//  3. A thread skips a row when dx*dx + dy*dy >= the largest bd of its
+//     cells (refreshed every 32 rows; a stale, larger value is safe):
+//     d2 = dxy + dz*dz >= dxy.  A warp gains when all its lanes skip,
+//     so a warp's columns form a compact patch: 4 x 2 (of 1 x 8, 2 x 4
+//     and 4 x 2 the fastest, by ~1% over 2 x 4 and ~12% over 1 x 8).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTile = 8;
-constexpr int kZT = 4;                        // threads along z
-constexpr int kCPT = 8;                       // cells per thread
-constexpr int kZB = kZT * kCPT;               // z extent of a block
+constexpr int kZT = 4;                         // threads along z a column
+constexpr int kCPT = 8;                        // cells a thread (along z)
+constexpr int kZB = kZT * kCPT;                // z extent of a block
 constexpr int kThreads = kTile * kTile * kZT;  // 256
-constexpr int kChunk = 512;                   // rows staged per round
+constexpr int kWarps = kThreads / 32;
+constexpr int kWX = 4;                         // warp patch: kWX x kWY columns
+constexpr int kWY = 32 / kZT / kWX;
+constexpr int kChunk = 1024;                   // kept rows staged per scan
+constexpr int kRefresh = 32;                   // rows between bmax refreshes
 constexpr int kMaxPay = 5;
+// steps 2 and 3 below; tools/k4_times.py measures the kernel without each
+constexpr bool kBlockFilter = true;
+constexpr bool kThreadSkip = true;
+static_assert(32 % kZT == 0 && kTile % kWX == 0 && kTile % kWY == 0,
+              "a warp is a kWX x kWY patch of columns");
+static_assert((kTile / kWX) * (kTile / kWY) == kWarps, "warps tile 8 x 8");
+static_assert(kChunk % kThreads == 0, "staging rounds fill a chunk");
+
+__device__ __forceinline__ float axis_gap(float p, float lo, float hi) {
+  return p < lo ? lo - p : (p > hi ? p - hi : 0.0f);
+}
 
 template <int NPAY, bool WRAP>
 __global__ void __launch_bounds__(kThreads)
@@ -55,76 +91,144 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ state,
                         float* __restrict__ out, int n, int zc, int nty,
                         int ntz, float n_f, float inv_n) {
-  __shared__ float sm[3 + NPAY][kChunk];
+  __shared__ float4 sm[kChunk];
+  __shared__ int wtot[2][kWarps];
+  __shared__ float wmax[kWarps];
   const int zsegs = zc / kZB;
   const int t = blockIdx.x / zsegs;  // flat tile id (tx * nty + ty) * ntz + tz
   const int zs = blockIdx.x % zsegs;
   const int tx = t / (nty * ntz);
   const int ty = (t / ntz) % nty;
   const int tz = t % ntz;
-  const int lz = threadIdx.x % kZT;
-  const int ly = (threadIdx.x / kZT) % kTile;
-  const int lx = threadIdx.x / (kZT * kTile);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int col = lane / kZT;
+  const int lx = (warp % (kTile / kWX)) * kWX + col % kWX;
+  const int ly = (warp / (kTile / kWX)) * kWY + col / kWX;
   const int x = tx * kTile + lx;
   const int y = ty * kTile + ly;
-  const int z0 = tz * zc + zs * kZB + lz;
+  const int zb = tz * zc + zs * kZB;  // first z of the block
+  const int z0 = zb + lane % kZT;       // cells z0 + kZT * j, j < kCPT
   const long long n3 = (long long)n * n * n;
   const long long line = ((long long)x * n + y) * n;
   const float qx = (float)x + 0.5f;
   const float qy = (float)y + 0.5f;
 
   float qz[kCPT], bd[kCPT];
-  float pay[NPAY > 0 ? NPAY : 1][kCPT];
+  int bk[kCPT];
 #pragma unroll
   for (int j = 0; j < kCPT; ++j) {
-    const int z = z0 + kZT * j;
-    qz[j] = (float)z + 0.5f;
-    bd[j] = state[NPAY * n3 + line + z];
-#pragma unroll
-    for (int c = 0; c < NPAY; ++c) pay[c][j] = state[c * n3 + line + z];
+    qz[j] = (float)(z0 + kZT * j) + 0.5f;
+    bd[j] = state[NPAY * n3 + line + z0 + kZT * j];
+    bk[j] = -1;
   }
 
-  const int s0 = s0v[t];
   const int s1 = s1v[t];
-  for (int base = s0; base < s1; base += kChunk) {
-    const int cnt = min(kChunk, s1 - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < cnt; i += kThreads) {
+  int rd = s0v[t];  // next span row to stage
+
+  // B: the block's largest input bd (wrap-free passes with rows only)
+  float B = 0.0f;
+  if (kBlockFilter && !WRAP && rd < s1) {
+    float tmax = bd[0];
 #pragma unroll
-      for (int c = 0; c < 3 + NPAY; ++c) {
-        sm[c][i] = rows[c * n_rows + base + i];
-      }
+    for (int j = 1; j < kCPT; ++j) tmax = fmaxf(tmax, bd[j]);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, s));
     }
+    if (lane == 0) wmax[warp] = tmax;
     __syncthreads();
-    for (int k = 0; k < cnt; ++k) {
-      float dx = qx - sm[0][k];
-      float dy = qy - sm[1][k];
-      if (WRAP) {
-        dx = dx - n_f * rintf(dx * inv_n);
-        dy = dy - n_f * rintf(dy * inv_n);
+    B = wmax[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) B = fmaxf(B, wmax[w]);
+  }
+  const float lox = (float)(tx * kTile) + 0.5f;
+  const float hix = (float)(tx * kTile + kTile - 1) + 0.5f;
+  const float loy = (float)(ty * kTile) + 0.5f;
+  const float hiy = (float)(ty * kTile + kTile - 1) + 0.5f;
+  const float loz = (float)zb + 0.5f;
+  const float hiz = (float)(zb + kZB - 1) + 0.5f;
+
+  int round = 0;
+  while (rd < s1) {
+    // stage: rounds of kThreads span rows, the kept ones compacted in
+    // span order, until the chunk could overflow or the span ends
+    int fill = 0;
+    while (rd < s1 && fill <= kChunk - kThreads) {
+      const int i = rd + threadIdx.x;
+      bool keep = false;
+      float4 r;
+      if (i < s1) {
+        r = make_float4(rows[i], rows[n_rows + i], rows[2 * n_rows + i],
+                        __int_as_float(i));
+        keep = true;
+        if (kBlockFilter && !WRAP) {
+          const float mx = axis_gap(r.x, lox, hix);
+          const float my = axis_gap(r.y, loy, hiy);
+          const float mz = axis_gap(r.z, loz, hiz);
+          keep = !((mx * mx + my * my) + mz * mz >= B);
+        }
       }
-      const float dxy = dx * dx + dy * dy;
-      const float pz = sm[2][k];
+      const unsigned bal = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) wtot[round & 1][warp] = __popc(bal);
+      __syncthreads();
+      int off = fill;
 #pragma unroll
-      for (int j = 0; j < kCPT; ++j) {
-        float dz = qz[j] - pz;
-        if (WRAP) dz = dz - n_f * rintf(dz * inv_n);
-        const float d2 = dxy + dz * dz;
-        if (d2 < bd[j]) {
-          bd[j] = d2;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = wtot[round & 1][w];
+        off += w < warp ? c : 0;
+        fill += c;
+      }
+      if (keep) sm[off + __popc(bal & ((1u << lane) - 1u))] = r;
+      rd += kThreads;
+      ++round;
+    }
+    __syncthreads();  // the kept rows are visible
+
+    // scan the chunk in order
+    for (int k0 = 0; k0 < fill; k0 += kRefresh) {
+      float bmax = bd[0];
 #pragma unroll
-          for (int c = 0; c < NPAY; ++c) pay[c][j] = sm[3 + c][k];
+      for (int j = 1; j < kCPT; ++j) bmax = fmaxf(bmax, bd[j]);
+      const int k1 = min(k0 + kRefresh, fill);
+      for (int k = k0; k < k1; ++k) {
+        const float4 r = sm[k];
+        float dx = qx - r.x;
+        float dy = qy - r.y;
+        if (WRAP) {
+          dx = dx - n_f * rintf(dx * inv_n);
+          dy = dy - n_f * rintf(dy * inv_n);
+        }
+        const float dxy = dx * dx + dy * dy;
+        if (kThreadSkip && dxy >= bmax) continue;  // no cell can take it
+        const int pos = __float_as_int(r.w);
+#pragma unroll
+        for (int j = 0; j < kCPT; ++j) {
+          float dz = qz[j] - r.z;
+          if (WRAP) dz = dz - n_f * rintf(dz * inv_n);
+          const float d2 = dxy + dz * dz;
+          const bool take = d2 < bd[j];
+          bd[j] = take ? d2 : bd[j];
+          bk[j] = take ? pos : bk[j];
         }
       }
     }
+    __syncthreads();  // the chunk is consumed
   }
 
 #pragma unroll
-  for (int j = 0; j < kCPT; ++j) {
-    const int z = z0 + kZT * j;
-    out[NPAY * n3 + line + z] = bd[j];
+  for (int j = 0; j < kCPT; ++j) out[NPAY * n3 + line + z0 + kZT * j] = bd[j];
+  // the payload a channel at a time: a thread's kCPT loads in flight
+#pragma unroll 1
+  for (int c = 0; c < NPAY; ++c) {
+    float v[kCPT];
 #pragma unroll
-    for (int c = 0; c < NPAY; ++c) out[c * n3 + line + z] = pay[c][j];
+    for (int j = 0; j < kCPT; ++j) {
+      v[j] = bk[j] >= 0 ? rows[(3 + c) * n_rows + bk[j]]
+                        : state[c * n3 + line + z0 + kZT * j];
+    }
+#pragma unroll
+    for (int j = 0; j < kCPT; ++j) out[c * n3 + line + z0 + kZT * j] = v[j];
   }
 }
 

@@ -1,4 +1,4 @@
-from .scatter import cell_index, deposit_ngp, sort_by_cell
+from .scatter import cell_index, deposit_cic, deposit_ngp, sort_by_cell
 from .sorted_scatter import deposit_sorted, deposit_sorted_cube
 from .nn_sweep import sweep_tiles_vals
 from .nn_index_sweep import sweep_tiles
@@ -7,7 +7,7 @@ from .nn import (nn_assign, nn_brute_force, nn_gather_grid, nn_interp_to_field,
 from .nn_window import nn_exact_assign, nn_window_gather, window_pass
 
 __all__ = [
-    "cell_index", "deposit_ngp", "sort_by_cell",
+    "cell_index", "deposit_cic", "deposit_ngp", "sort_by_cell",
     "deposit_sorted", "deposit_sorted_cube", "sweep_tiles_vals",
     "sweep_tiles", "window_pass",
     "nn_assign", "nn_brute_force", "nn_exact_assign", "nn_gather_grid",

@@ -1,20 +1,23 @@
-"""Point deposition (scatter): NGP on the sorted-segment deposit K1.
+"""Point deposition (scatter): NGP and CIC on the sorted deposit K1.
 
 PyTorch counterpart of :mod:`vpower_tpu.deposit.scatter` (reference
 ``deposit_to_grid``, ``vpower/interp.py:996-1015``).  The scatter is
 deterministic by construction: particles are sorted by cell id (stable)
 and each cell's rows are summed in that order by
 :func:`~.sorted_scatter.deposit_sorted`.  Outputs are CHANNELS-FIRST
-``(C, N, N, N)``.  CIC waits for a later slice of the port.
+``(C, N, N, N)``.  CIC follows the JAX package's sorted-kernel
+formulation: one stable sort by the wrapped base cell, then the eight
+corners as eight K1 deposits through
+:func:`~.sorted_scatter.deposit_offsets_rolled`.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.arith import div
-from .sorted_scatter import deposit_sorted_cube
+from .sorted_scatter import deposit_offsets_rolled, deposit_sorted_cube
 
-__all__ = ["cell_index", "deposit_ngp", "sort_by_cell"]
+__all__ = ["cell_index", "deposit_cic", "deposit_ngp", "sort_by_cell"]
 
 
 def cell_index(pos: torch.Tensor, n_grid: int, box_size: float) -> torch.Tensor:
@@ -46,4 +49,39 @@ def deposit_ngp(pos: torch.Tensor, values: torch.Tensor, n_grid: int,
                                      box_size=box_size)
     grid = deposit_sorted_cube(sids, svals.to(torch.float32).contiguous(),
                                n_grid)
+    return grid[0] if squeeze else grid
+
+
+def _cic_base_frac(pos: torch.Tensor, n_grid: int, box_size: float):
+    """Base cell (int32, unwrapped) and fraction in [0, 1) of each
+    particle, relative to the cell centres: ``u = pos / cell - 0.5``."""
+    u = div(pos, box_size / n_grid) - 0.5
+    base = torch.floor(u).to(torch.int32)
+    return base, u - base.to(u.dtype)
+
+
+def deposit_cic(pos: torch.Tensor, values: torch.Tensor, n_grid: int,
+                box_size: float) -> torch.Tensor:
+    """Cloud-in-cell (trilinear) scatter with periodic wrap.  Returns
+    (n, n, n) or CHANNELS-FIRST (C, n, n, n).  Particles are sorted once
+    (stable) by their wrapped base cell; corner ``d`` deposits at the
+    base cell with weight ``(fx if dx else 1 - fx) * (fy ...) * (fz
+    ...)``, rolled into place by :func:`deposit_offsets_rolled`."""
+    squeeze = values.ndim == 1
+    vals2 = (values[:, None] if squeeze else values).to(torch.float32)
+    base, frac = _cic_base_frac(pos, n_grid, box_size)
+    bw = torch.remainder(base, n_grid)
+    ids = (bw[:, 0] * n_grid + bw[:, 1]) * n_grid + bw[:, 2]
+    sids, order = torch.sort(ids, stable=True)
+    svals = vals2[order].contiguous()
+    sfrac = frac[order]
+    fx, fy, fz = sfrac[:, 0], sfrac[:, 1], sfrac[:, 2]
+
+    def corner_weight(d):
+        dx, dy, dz = d
+        return ((fx if dx else 1.0 - fx) * (fy if dy else 1.0 - fy)
+                * (fz if dz else 1.0 - fz))
+
+    grid = deposit_offsets_rolled(sids.contiguous(), svals, corner_weight,
+                                  (0, 1), n_grid)
     return grid[0] if squeeze else grid

@@ -13,16 +13,20 @@ atomics; the source's header says what bounds it on the H100).  On a CPU tensor 
 :func:`deposit_sorted_plain`, a sequential ``index_add_`` that sums each
 cell's rows in the same order, so the two agree bit for bit.  Any other
 device raises.  ``LAUNCHES`` counts kernel launches.
+
+:func:`deposit_offsets_rolled` sums deposits over a 3-D offset lattice
+(the CIC corners, later the SPH footprints) on top of it, one K1 launch
+an offset, each accumulating onto the carry.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 __all__ = ["deposit_sorted", "deposit_sorted_cube", "deposit_sorted_plain",
-           "LAUNCHES"]
+           "deposit_offsets_rolled", "snake_offsets", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -110,3 +114,49 @@ def deposit_sorted_cube(sids: torch.Tensor, svals: torch.Tensor,
     ``mxu_deposit_sorted``)."""
     out = deposit_sorted(sids, svals, n_grid**3)
     return out.reshape(out.shape[0], n_grid, n_grid, n_grid)
+
+
+def snake_offsets(axis_vals: Sequence[int]):
+    """All 3-D offsets over ``axis_vals`` ordered so that consecutive
+    entries differ by +-1 on exactly one axis (boustrophedon)."""
+    vals = list(axis_vals)
+    seq = []
+    flip_y = flip_z = False
+    for dx in vals:
+        for dy in (vals[::-1] if flip_y else vals):
+            for dz in (vals[::-1] if flip_z else vals):
+                seq.append((dx, dy, dz))
+            flip_z = not flip_z
+        flip_y = not flip_y
+    return seq
+
+
+def deposit_offsets_rolled(sids: torch.Tensor, svals: torch.Tensor,
+                           weight_fn: Callable, axis_vals: Sequence[int],
+                           n_grid: int) -> torch.Tensor:
+    """``sum_d roll(deposit(weight_fn(d) * svals), d)`` over the offset
+    lattice ``axis_vals^3``: (C, n, n, n), counterpart of the JAX
+    ``deposit_offsets_rolled``.  The offsets are visited in snake order
+    in a rotating frame: with ``B_k = roll(T_k, -d_k)`` (``T_k`` the
+    partial sum), ``B_k = roll(B_{k-1}, d_{k-1} - d_k) + G_k``, one
+    one-axis +-1 roll an offset, and each ``G_k`` (one K1 launch)
+    accumulates onto ``B_{k-1}`` as its carry; a last roll by the final
+    offset brings the sum back.  ``weight_fn(d)`` gives the (N,) weights
+    of the sorted rows at offset ``d``."""
+    n_chan = svals.shape[1]
+    acc, prev = None, None
+    for d in snake_offsets(axis_vals):
+        if prev is not None:
+            for ax, s in enumerate(p - c for p, c in zip(prev, d)):
+                if s:
+                    acc = torch.roll(acc, s, dims=1 + ax)
+        w = weight_fn(d)
+        acc = deposit_sorted(
+            sids, (svals * w[:, None]).contiguous(), n_grid**3,
+            carry=None if acc is None else acc.reshape(n_chan, -1),
+        ).reshape(n_chan, n_grid, n_grid, n_grid)
+        prev = d
+    for ax, s in enumerate(prev):
+        if s:
+            acc = torch.roll(acc, s, dims=1 + ax)
+    return acc

@@ -1,10 +1,10 @@
 """End-to-end pipelines: particles -> grid -> P(k), one device.
 
 PyTorch counterpart of :mod:`vpower_tpu.run.pipeline`, in the part the
-unfolded NN and NGP spectra need.  Scatter methods deposit ``[m*v, m]``
-and derive ``v = p / m``; the gather method (``nn``) assigns each cell
-the velocity of its nearest particle.  Work runs on the device of the
-particle tensors.
+unfolded NN, NGP and CIC spectra need.  Scatter methods deposit
+``[m*v, m]`` and derive ``v = p / m``; the gather method (``nn``)
+assigns each cell the velocity of its nearest particle.  Work runs on
+the device of the particle tensors.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from ..core.field import BoxField
 from ..core.particles import Particles
-from ..deposit.scatter import deposit_ngp
+from ..deposit.scatter import deposit_cic, deposit_ngp
 from ..spectrum import power as power_mod
 from ..spectrum.spectrum import PowerSpectrum
 
@@ -28,16 +28,12 @@ def _divide_momentum(p_grid: torch.Tensor, m_grid: torch.Tensor) -> torch.Tensor
 
 
 def _deposit_scatter(particles: Particles, n_grid: int, method: str) -> BoxField:
-    if method != "ngp":
-        raise NotImplementedError(
-            f"scatter method {method!r}: only 'ngp' is ported; CIC comes "
-            f"with slice 4"
-        )
     values = torch.cat(
         [particles.vel * particles.mass[:, None], particles.mass[:, None]],
         dim=1,
     )
-    grid = deposit_ngp(particles.pos, values, n_grid, particles.box_size)
+    fn = {"ngp": deposit_ngp, "cic": deposit_cic}[method]
+    grid = fn(particles.pos, values, n_grid, particles.box_size)
     m_grid = grid[3]
     return BoxField(velocity=_divide_momentum(grid[:3], m_grid), mass=m_grid,
                     cell_size=particles.box_size / n_grid)
@@ -46,18 +42,17 @@ def _deposit_scatter(particles: Particles, n_grid: int, method: str) -> BoxField
 def deposit(particles: Particles, n_grid: int, method: str = "cic",
             **kwargs) -> BoxField:
     """Deposit/interpolate particles onto an (n_grid)^3 field:
-    ``ngp`` (scatter) or ``nn`` (nearest-neighbour gather, keywords
-    ``periodic`` and ``exact``)."""
-    if method == "ngp":
+    ``ngp`` or ``cic`` (scatter) or ``nn`` (nearest-neighbour gather,
+    keywords ``periodic`` and ``exact``)."""
+    if method in ("ngp", "cic"):
         return _deposit_scatter(particles, n_grid, method)
     if method == "nn":
         from ..deposit.nn import nn_interp_to_field
 
         return nn_interp_to_field(particles, n_grid, **kwargs)
-    if method in ("cic", "sph"):
+    if method == "sph":
         raise NotImplementedError(
-            f"deposition method {method!r} is ported in slice "
-            f"{4 if method == 'cic' else 5}"
+            "deposition method 'sph' is ported in slice 5 (ROADMAP item 8)"
         )
     raise ValueError(f"Unknown deposition method {method!r}")
 
@@ -67,8 +62,8 @@ def _quantity_grid(field: BoxField, quantity: str) -> torch.Tensor:
         return field.velocity
     if quantity in ("momentum", "energy"):
         raise NotImplementedError(
-            f"quantity {quantity!r} is ported with the rest of the "
-            f"pipeline in slice 4"
+            f"quantity {quantity!r} is ported with the containers of "
+            f"slice 4 (ROADMAP item 6a)"
         )
     raise ValueError(
         "Unrecognized physical quantity name. "
@@ -112,13 +107,10 @@ def power_spectrum(
     with ``quantity="velocity"`` takes the velocity-only fast path
     (``rho`` is not carried through the descent)."""
     if interlace:
-        raise NotImplementedError("interlace=True is ported in slice 4")
-    if method not in ("nn", "ngp"):
         raise NotImplementedError(
-            f"power_spectrum(method={method!r}) is ported in slice "
-            f"{4 if method == 'cic' else 5}"
-        )
-    comp_order = 1 if (compensate and method == "ngp") else 0
+            "interlace=True is ported with the rest of the pipeline in "
+            "slice 4 (ROADMAP item 7)")
+    comp_order = {"ngp": 1, "cic": 2}.get(method, 0) if compensate else 0
     if compensate and comp_order == 0:
         raise ValueError("compensate=True is defined for ngp/cic only")
     if method == "nn" and quantity == "velocity" \
