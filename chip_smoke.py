@@ -61,8 +61,9 @@ path's run, its largest error against the plain version, its time, the
 plain version's, the library call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (the H100 SXM's published peaks), computed from this run's
-inputs.  K4's operations are counted on the pairs any exact method must
-score (``_k4_needed_pairs``), not on every pair of the spans.  Then the
+inputs.  K4's operations are counted on the live pairs, whose d2 is
+below the cell's input bound (``_k4_live_pairs``), not on every pair of
+the spans, and its bytes on x, y and z of each span row.  Then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; refuses to run without one.
 """
@@ -356,58 +357,70 @@ def _k3_bound(state_idx, state_pos, seed_idx, seed_pos, *_, **__):
                   + 20 * n3, n3 * (52 + 54 * k) * CAND_OPS)
 
 
-def _k4_needed_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay,
-                     halo=16, tiles_per_step=1024):
-    """Pairs any exact method must score: per cell, the rows of its
-    tile's span whose z lies within sqrt(bd_in) of the cell centre.
-    Counted on the card from a per-tile histogram of row z in whole cells
-    (tile z extent +- ``halo``) and its prefix sum, taking only the cells
-    wholly inside (qz - r, qz + r), so the count is a lower bound."""
+def _k4_live_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay, wrap,
+                   step=64, budget=1 << 28):
+    """Pairs the input state leaves live: a span row and a cell of its
+    tile whose d2, in the kernel's arithmetic (centres ``i + 0.5``, the
+    minimum image with ``wrap``, ``(dx*dx + dy*dy) + dz*dz``), is below
+    the cell's input bound.  Only these can change a cell, and a scan
+    that knows no more than the input bound has to score each of them.
+    Counted by brute force on the card, ``step`` rows of a batch of
+    tiles at a time."""
     from vpower_tpu_torch.deposit import nn_window
 
     nt = nn_window._ntiles(n_grid, zc)
-    n_t = nt[0] * nt[1] * nt[2]
     dev = rows.device
-    width = zc + 2 * halo
+    tile = nn_window.TILE
+    bd_all = nn_window._tile_major(state[n_pay:], nt, zc)[0]  # (T, 8, 8, zc)
     lens = (s1 - s0).long()
-    tiles = torch.repeat_interleave(torch.arange(n_t, device=dev), lens)
-    first = torch.cumsum(lens, 0) - lens
-    idx = s0.long()[tiles] + torch.arange(tiles.shape[0], device=dev) \
-        - first[tiles]
-    tz = tiles % nt[2]
-    b = torch.floor(rows[2][idx]).long() - tz * zc + halo
-    ok = (b >= 0) & (b < width)
-    hist = torch.bincount(tiles[ok] * width + b[ok], minlength=n_t * width)
-    cum = torch.cat([torch.zeros((n_t, 1), dtype=torch.long, device=dev),
-                     torch.cumsum(hist.reshape(n_t, width), 1)], 1)
-    del tiles, first, idx, tz, b, ok, hist
-    bd = nn_window._tile_major(state[n_pay:], nt, zc)[0]  # (T, 8, 8, zc)
-    total = 0
-    for t0 in range(0, n_t, tiles_per_step):
-        t1 = min(n_t, t0 + tiles_per_step)
-        r = torch.sqrt(bd[t0:t1].double().clamp_min(0))
-        qz = (torch.arange(zc, device=dev) + 0.5).double()
-        lo = torch.floor(qz - r).long() + 1 + halo         # first whole cell
-        hi = torch.ceil(qz + r).long() - 2 + halo          # last whole cell
-        lo, hi = lo.clamp(0, width), hi.clamp(-1, width - 1)
-        c = cum[t0:t1].reshape(t1 - t0, 1, 1, 1, width + 1).expand(
-            -1, 8, 8, zc, -1)
-        cnt = torch.gather(c, 4, (hi + 1).clamp_min(0)[..., None])[..., 0] \
-            - torch.gather(c, 4, lo.clamp_max(width)[..., None])[..., 0]
-        total += int(torch.where(hi >= lo, cnt, 0).sum())
-    return total
+    tiles = torch.nonzero(lens > 0)[:, 0]
+    tiles = tiles[torch.argsort(lens[tiles], descending=True)]
+    lens = lens[tiles].tolist()
+    batch = max(1, budget // (tile * tile * zc * step))
+    ar_xy = torch.arange(tile, device=dev)
+    ar_z = torch.arange(zc, device=dev)
+    ar_k = torch.arange(step, device=dev)
+    n_f, inv_n = float(n_grid), float(np.float32(1.0 / n_grid))
+    inf = torch.tensor(float("inf"), device=dev)
+
+    def wrapped(d):
+        return d - n_f * torch.round(d * inv_n) if wrap else d
+
+    total = torch.zeros((), dtype=torch.long, device=dev)
+    for b0 in range(0, tiles.shape[0], batch):
+        tb = tiles[b0:b0 + batch]
+        qx = (tb[:, None] // (nt[1] * nt[2]) * tile + ar_xy).float() + 0.5
+        qy = ((tb[:, None] // nt[2]) % nt[1] * tile + ar_xy).float() + 0.5
+        qz = (tb[:, None] % nt[2] * zc + ar_z).float() + 0.5
+        bd = bd_all[tb][..., None]                          # (B,8,8,zc,1)
+        t0, t1 = s0.long()[tb], s1.long()[tb]
+        for base in range(0, lens[b0], step):
+            k = t0[:, None] + base + ar_k                   # (B, rows)
+            kval = k < t1[:, None]
+            kc = torch.where(kval, k, 0)
+            dx = wrapped(qx[:, :, None] - rows[0][kc][:, None, :])
+            dy = wrapped(qy[:, :, None] - rows[1][kc][:, None, :])
+            dz = wrapped(qz[:, :, None] - rows[2][kc][:, None, :])
+            dz2 = torch.where(kval[:, None, :], dz * dz, inf)
+            d2 = (dx[:, :, None, None, :] * dx[:, :, None, None, :]
+                  + dy[:, None, :, None, :] * dy[:, None, :, None, :]) \
+                + dz2[:, None, None, :, :]                  # (B,8,8,zc,rows)
+            total += (d2 < bd).sum()
+    return int(total)
 
 
-def _k4_bound(torch, s0, s1, rows, state, n_grid, zc, n_pay, **_):
-    """The rows in spans, the spans and the state read once, the state
-    written once; 9 operations on each pair any exact method must score.
-    Returns the bound and both pair counts: every span row against its
-    tile's 8 x 8 x zc cells, and the needed ones."""
+def _k4_bound(torch, s0, s1, rows, state, n_grid, zc, n_pay, wrap):
+    """The spans, x, y and z of every span row and the state read once,
+    the state written once (a beaten cell's payload gathered from its
+    winning row takes the place of reading its own); 9 operations on
+    each live pair.  Returns the bound and both pair counts: every span
+    row against its tile's 8 x 8 x zc cells, and the live ones."""
     span = int((s1 - s0).long().sum())
-    needed = _k4_needed_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay)
-    bound = _bound(_nbytes(s0, s1) + 4 * rows.shape[0] * span
-                   + 2 * _nbytes(state), needed * CAND_OPS)
-    return bound, span * 64 * zc, needed
+    live = _k4_live_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay,
+                          wrap)
+    bound = _bound(_nbytes(s0, s1) + 12 * span + 2 * _nbytes(state),
+                   live * CAND_OPS)
+    return bound, span * 64 * zc, live
 
 
 def _build_all(names):
@@ -865,7 +878,7 @@ def main():
         del plain, mask
         ms = _time_ms(torch, lambda: nn_window.window_pass(
             s0, s1, rows, state, **kw), 3)
-        least, pairs, needed = _k4_bound(torch, s0, s1, rows, state, **kw)
+        least, pairs, live = _k4_bound(torch, s0, s1, rows, state, **kw)
         span_ops_ms = pairs * CAND_OPS / FP32_OPS_PER_S * 1e3
         whole = ""
         if i == 0:
@@ -884,8 +897,9 @@ def main():
               f"bitwise equal to plain, two kernel runs bitwise equal{whole}; "
               f"kernel (whole pass) {ms:.3f} ms; pairs: {pairs} in the spans "
               f"({span_ops_ms:.3f} ms at {CAND_OPS} operations each), "
-              f"{needed} that an exact method must score; bound "
-              f"{least[0]:.3f} ms ({least[1]}, on the needed pairs); plain "
+              f"{live} live (d2 below the input bound); bound "
+              f"{least[0]:.3f} ms ({least[1]}; 12 B a span row, 9 "
+              f"operations a live pair); plain "
               f"on the {K4_SAMPLE_TILES} tiles {plain_s * 1e3:.1f} ms",
               flush=True)
         del out

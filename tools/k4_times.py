@@ -6,55 +6,33 @@
 On one CUDA card, with the particles of ``chip_smoke.py`` (10,077,696 on
 a 216^3 lattice jittered by 3 cells, seed 42, box 1): records the K4
 passes that ``power_spectrum(particles, 512, method="nn", exact=True)``
-makes, checks each against the plain version (``window_pass_plain``) on
-512 random tiles, bitwise, and times it by CUDA events, the mean of 5
+makes, checks each whole pass bitwise against the plain version
+(``window_pass_plain``), and times it by CUDA events, the mean of 5
 calls after a warm-up; then the synchronized walls of the exact NN
 spectrum and of ``nn_exact_assign`` (both on K4), and of the fast NN
 spectrum (not on K4), 5 runs each after a warm-up.
 
 ``--root DIR`` imports ``vpower_tpu_torch`` from another checkout of the
-repository (an unpacked earlier commit), so two versions of the kernel
-can be timed in turns on one card, one process each:
-
-    python3 tools/k4_times.py --root _archive/parent
-    python3 tools/k4_times.py
+repository (an unpacked earlier commit); see ``tools/ab_common.py``.
 
 ``--variants`` also builds variants of this checkout's kernel source,
-each with some of its compile-time constants replaced (``kWX=1`` for a
-warp of 1 x 8 columns, ``kZT=2,kWX=4`` for blocks 16 cells high,
-``kBlockFilter=false``), and times every recorded pass with each,
-checked bitwise against the kernel as it stands.  ``--shares`` prints,
-for each wrap-free pass, the share of span rows the block filter keeps
-(every block) and, on up to 256 random tiles with rows, the share of
-the kept (thread, row) and (warp, row) pairs that the thread skip
-leaves to score, counted against each thread's input bound (the
-kernel's bound only falls, so these are upper bounds).
+each with some of its compile-time constants replaced (``kWX=2`` for a
+warp of 2 x 4 columns, ``kZT=2,kWX=4`` for blocks 16 cells high,
+``kChunk=2048``), and times every recorded pass with each, checked
+bitwise against the kernel as it stands.  ``--shares`` prints, for each
+wrap-free pass, the share of span rows the block filter keeps (every
+block) and, on up to 256 random tiles with rows, the share of the kept
+(thread, row) and (warp, row) pairs that the thread skip leaves to
+score, counted against each thread's input bound (the kernel's bound
+only falls, so these are upper bounds).
 """
-import argparse
 import ctypes
-import os
 import re
 import subprocess
-import sys
-import time
 
 import torch
 
-N_GRID, N_FIELD, N_LATTICE, JITTER, SEED, BOX = 512, 256, 216, 3.0, 42, 1.0
-SAMPLE_TILES = 512
-
-
-def time_ms(fn, reps=5):
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+from ab_common import BOX, N_GRID, SEED, Run, parser, time_ms
 
 
 def build_variant(build, spec):
@@ -63,8 +41,8 @@ def build_variant(build, spec):
     src = (build._SRC / "window_sweep.cu").read_text()
     for item in spec.split(","):
         name, value = item.split("=")
-        src, n_sub = re.subn(rf"constexpr (int|bool) {name} = \w+;",
-                             rf"constexpr \1 {name} = {value};", src)
+        src, n_sub = re.subn(rf"constexpr int {name} = \w+;",
+                             rf"constexpr int {name} = {value};", src)
         if n_sub != 1:
             raise SystemExit(f"k4_times.py: no constant {name} in the source")
     tag = re.sub(r"[^A-Za-z0-9]+", "_", spec)
@@ -153,77 +131,35 @@ def shares(torch, nn_window, s0, s1, rows, state, n_grid, zc, n_pay,
 
 
 def main():
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=here,
-                    help="checkout to import vpower_tpu_torch from")
+    ap = parser(__doc__)
     ap.add_argument("--variants", nargs="*", default=[],
-                    help="constant replacements, e.g. kWX=1 kZT=2,kWX=4")
+                    help="constant replacements, e.g. kWX=2 kZT=2,kWX=4")
     ap.add_argument("--shares", action="store_true",
                     help="print the block filter's and thread skip's shares")
     args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    if not torch.cuda.is_available():
-        raise SystemExit("k4_times.py: needs a CUDA card")
-    sys.path.insert(0, root)
-    import vpower_tpu_torch as vt
+    run = Run("k4_times.py", args.root)
+    vt, dev = run.vt, run.dev
     from vpower_tpu_torch import _build
     from vpower_tpu_torch.deposit import nn_window
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    tag = f"[k4_times {os.path.relpath(root, here)}]"
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    # as chip_smoke.py draws them: the same particles
-    field = vt.gaussian_random_field(gen, N_FIELD, BOX)
-    pos = vt.grid_positions(N_LATTICE, BOX, generator=gen, jitter=JITTER)
-    particles = vt.particles_from_field(field, BOX, pos)
-    del field, pos
-    print(f"{tag} {smi}; {len(particles)} particles, {N_GRID}^3", flush=True)
-
-    calls, results = [], []
-    orig = nn_window.window_pass
-
-    def record(*a, **kw):
-        calls.append((a, kw))
-        results.append(orig(*a, **kw))
-        return results[-1]
-
-    nn_window.window_pass = record
-    try:
-        spec = vt.power_spectrum(particles, N_GRID, method="nn", exact=True)
-    finally:
-        nn_window.window_pass = orig
-    torch.cuda.synchronize()
-    print(f"{tag} exact spectrum: {len(calls)} K4 passes, Psum checksum "
-          f"{float(spec.Psum.sum()):.9e}", flush=True)
+    spec, calls = run.record(
+        nn_window, "window_pass", lambda: vt.power_spectrum(
+            run.particles, N_GRID, method="nn", exact=True))
+    run.say(f"exact spectrum: {len(calls)} K4 passes, Psum checksum "
+            f"{float(spec.Psum.sum()):.9e}")
 
     zc = nn_window._zc(N_GRID)
-    nt = nn_window._ntiles(N_GRID, zc)
-    n_tiles = nt[0] * nt[1] * nt[2]
     rng = torch.Generator(device=dev).manual_seed(SEED)
     variants = [(s, build_variant(_build, s)) for s in args.variants]
-    for i, ((s0, s1, rows, state), kw) in enumerate(calls):
-        tiles = torch.randperm(n_tiles, generator=rng, device=dev)[
-            :SAMPLE_TILES]
-        picked = torch.zeros(n_tiles, device=dev)
-        picked[tiles] = 1.0
-        mask = nn_window._grid_major(
-            picked.reshape(1, -1, 1, 1, 1).expand(
-                1, n_tiles, nn_window.TILE, nn_window.TILE, zc).contiguous(),
-            nt, zc)[0] > 0
-        plain = nn_window.window_pass_plain(s0, s1, rows, state, tiles=tiles,
-                                            **kw)
-        if not torch.equal(results[i][:, mask], plain[:, mask]):
+    for i, (((s0, s1, rows, state), kw), out) in enumerate(calls):
+        if not torch.equal(out, nn_window.window_pass_plain(
+                s0, s1, rows, state, **kw)):
             raise SystemExit(f"k4_times.py: K4 pass {i} differs from its "
                              f"plain version")
-        del plain, mask
         span = int((s1 - s0).long().sum())
         ms = time_ms(lambda: nn_window.window_pass(s0, s1, rows, state, **kw))
-        print(f"{tag} K4 pass {i} {kw}, {span} span rows: equal to plain on "
-              f"{SAMPLE_TILES} tiles, {ms:.3f} ms", flush=True)
+        run.say(f"K4 pass {i} {kw}, {span} span rows: bitwise equal to "
+                f"plain, {ms:.3f} ms")
         if args.shares and not kw["wrap"]:
             wx = int(re.search(r"constexpr int kWX = (\d+);", (
                 _build._SRC / "window_sweep.cu").read_text()).group(1))
@@ -232,16 +168,16 @@ def main():
                                          device=dev)[:256]]
             kept, thr, wrp = shares(torch, nn_window, s0, s1, rows, state,
                                     N_GRID, zc, kw["n_pay"], sample, wx=wx)
-            print(f"{tag} K4 pass {i}: the block filter keeps {kept:.4f} of "
-                  f"the span rows; of the kept thread-rows at most {thr:.4f} "
-                  f"are scored, of the kept warp-rows at most {wrp:.4f} "
-                  f"({sample.shape[0]} tiles with rows)", flush=True)
+            run.say(f"K4 pass {i}: the block filter keeps {kept:.4f} of the "
+                    f"span rows; of the kept thread-rows at most {thr:.4f} "
+                    f"are scored, of the kept warp-rows at most {wrp:.4f} "
+                    f"({sample.shape[0]} tiles with rows)")
         for spec_v, lib in variants:
             saved = _build._LIBS["window_sweep"]
             _build._LIBS["window_sweep"] = lib
             try:
-                out = nn_window.window_pass(s0, s1, rows, state, **kw)
-                same = torch.equal(out, results[i])
+                same = torch.equal(
+                    nn_window.window_pass(s0, s1, rows, state, **kw), out)
                 ms_v = time_ms(lambda: nn_window.window_pass(
                     s0, s1, rows, state, **kw))
             finally:
@@ -249,32 +185,17 @@ def main():
             if not same:
                 raise SystemExit(f"k4_times.py: variant {spec_v} differs on "
                                  f"pass {i}")
-            print(f"{tag} K4 pass {i} variant {spec_v}: bitwise equal, "
-                  f"{ms_v:.3f} ms", flush=True)
-            del out
-    del calls, results
+            run.say(f"K4 pass {i} variant {spec_v}: bitwise equal, "
+                    f"{ms_v:.3f} ms")
+    del calls
     torch.cuda.empty_cache()
 
-    def wall(name, fn):
-        fn()
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        walls.sort()
-        print(f"{tag} {name} wall, 5 runs after warm-up: min {walls[0]:.4f} "
-              f"s, median {walls[2]:.4f} s, max {walls[4]:.4f} s on {smi}",
-              flush=True)
-
-    wall("exact NN spectrum", lambda: vt.power_spectrum(
-        particles, N_GRID, method="nn", exact=True))
-    wall("nn_exact_assign", lambda: vt.nn_exact_assign(
-        particles.pos, N_GRID, BOX))
-    wall("NN spectrum", lambda: vt.power_spectrum(
-        particles, N_GRID, method="nn"))
+    run.wall("exact NN spectrum", lambda: vt.power_spectrum(
+        run.particles, N_GRID, method="nn", exact=True))
+    run.wall("nn_exact_assign", lambda: vt.nn_exact_assign(
+        run.particles.pos, N_GRID, BOX))
+    run.wall("NN spectrum", lambda: vt.power_spectrum(
+        run.particles, N_GRID, method="nn"))
 
 
 if __name__ == "__main__":

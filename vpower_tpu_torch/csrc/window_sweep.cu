@@ -71,9 +71,6 @@ constexpr int kWY = 32 / kZT / kWX;
 constexpr int kChunk = 1024;                   // kept rows staged per scan
 constexpr int kRefresh = 32;                   // rows between bmax refreshes
 constexpr int kMaxPay = 5;
-// steps 2 and 3 below; tools/k4_times.py measures the kernel without each
-constexpr bool kBlockFilter = true;
-constexpr bool kThreadSkip = true;
 static_assert(32 % kZT == 0 && kTile % kWX == 0 && kTile % kWY == 0,
               "a warp is a kWX x kWY patch of columns");
 static_assert((kTile / kWX) * (kTile / kWY) == kWarps, "warps tile 8 x 8");
@@ -128,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // B: the block's largest input bd (wrap-free passes with rows only)
   float B = 0.0f;
-  if (kBlockFilter && !WRAP && rd < s1) {
+  if (!WRAP && rd < s1) {
     float tmax = bd[0];
 #pragma unroll
     for (int j = 1; j < kCPT; ++j) tmax = fmaxf(tmax, bd[j]);
@@ -162,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
         r = make_float4(rows[i], rows[n_rows + i], rows[2 * n_rows + i],
                         __int_as_float(i));
         keep = true;
-        if (kBlockFilter && !WRAP) {
+        if (!WRAP) {
           const float mx = axis_gap(r.x, lox, hix);
           const float my = axis_gap(r.y, loy, hiy);
           const float mz = axis_gap(r.z, loz, hiz);
@@ -200,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
           dy = dy - n_f * rintf(dy * inv_n);
         }
         const float dxy = dx * dx + dy * dy;
-        if (kThreadSkip && dxy >= bmax) continue;  // no cell can take it
+        if (dxy >= bmax) continue;  // no cell can take it
         const int pos = __float_as_int(r.w);
 #pragma unroll
         for (int j = 0; j < kCPT; ++j) {
