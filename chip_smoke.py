@@ -55,10 +55,24 @@ is non-zero):
 9. ``deposit(method="nn", exact=True)`` at 160^3 (``n % 64 != 0``: the
    ring-refined index route) on 4,096,000 particles: cells farther than
    the kd-tree's NN by more than 1e-4 cell, at most 1e-5 of the cells.
+10. fold: the folded momentum spectrum of range 1024 from a 512^3 grid
+   (m = 2).  ``fused_fold_spectrum`` at beta = (1, 0, 1), NGP and CIC:
+   its K1 call (the 6 phased channels) bitwise equal to the plain version
+   run on the host, timed beside its bound; Nsample equal to and Psum
+   within 1e-5 of a float64 host chain (``np.bincount`` of the phased
+   momentum at each target's full-resolution cell, folded; complex
+   pocketfft; ``np.histogram`` of |2 pi (m t + beta) / L|).  Then the
+   main path, ``fused_fold_full_spectrum(particles, 512, 2)`` (NGP, all 8
+   betas): launch counts, three timed runs after the warm-up, the stage
+   times of a fourth; and the folding identity: Nsample equal over all
+   511 bins and Psum within 1e-4 of the unfolded 1024^3 momentum
+   spectrum (``deposit_ngp`` of 3 channels, ``real_power_binned``).
 
 The kernel summary is one JSON line: per kernel its launches on the main
-path's run, its largest error against the plain version, its time, the
-plain version's, the library call's (K1 only), and its bound: the larger
+path's run (K1: the NN path's and the fold's, by path under
+``launches_by_path``, its fold calls under ``fold``), its largest error
+against the plain version, its time, the plain version's, the library
+call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (the H100 SXM's published peaks), computed from this run's
 inputs.  K4's operations are counted on the live pairs, whose d2 is
@@ -91,6 +105,10 @@ EXACT_CELL_TOL = 1e-4    # cells: f32 cell-unit coordinates near 512 round
                          # at ~3e-5 cell
 CIC_RTOL = 1e-5          # CIC Psum against the float64 host chain
 CIC_MASS_RTOL = 1e-6     # CIC mass against the sum of the particle masses
+FOLD_M = 2               # fold factor: range 1024 from a 512^3 grid
+FOLD_BETA = (1, 0, 1)    # the beta held to the float64 host chains
+FOLD_RTOL = 1e-5         # one beta's Psum against its float64 host chain
+FOLD_IDENTITY_RTOL = 1e-4  # the 8-beta sweep against the 1024^3 spectrum
 # Share of cells whose NN is misassigned.  The descent's own class at
 # this occupancy (0.075 particles per cell) is ~2.3e-2: the finest level
 # pre-merges the rank-0 seeds (nn.py _PREMERGE_MIN), which a CPU run of
@@ -294,6 +312,74 @@ def _host_cic_power(pos, vel, mass, n_grid, box_size):
     v = np.where(msum > 0, grid[:3] / safe, 0.0)
     return _host_power(v.reshape((3,) + (n_grid,) * 3), box_size), \
         float(msum.sum())
+
+
+def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
+    """float64 folded momentum sub-spectrum of one beta on the host:
+    ``np.bincount`` of the phased momentum ``m v e^{-i theta}``, ``theta
+    = 2 pi (g . beta) / Ntot``, at each target's full-resolution cell g
+    (NGP: the particle's; CIC: its eight weighted corners), folded onto
+    the (n_grid)^3 grid and divided by m^1.5; complex pocketfft; the
+    modes binned by |K| = |m t + beta| (|k| = 2 pi |K| / L), bin i
+    holding (i + 1/2) <= |K| < (i + 3/2), with ``np.bincount``.  The
+    particles are first ordered by cell so that the bincounts walk the
+    grid in order.  Returns ``(Psum, Nsample)``."""
+    import scipy.fft
+
+    n_total = m * n_grid
+    cell = box_size / n_total
+    if method == "ngp":
+        base, frac = np.floor(pos / cell).astype(np.int64), None
+        corners = [(0, 0, 0)]
+    else:
+        u = pos / cell - 0.5
+        base = np.floor(u).astype(np.int64)
+        frac = u - base
+        corners = list(np.ndindex(2, 2, 2))
+    f = base % n_grid
+    order = np.argsort((f[:, 0] * n_grid + f[:, 1]) * n_grid + f[:, 2],
+                       kind="stable")
+    base = base[order]
+    frac = None if frac is None else frac[order]
+    mom = vel[order] * mass[order, None]
+    flat, cos_w, sin_w = [], [], []
+    for d in corners:
+        g = (base + np.asarray(d)) % n_total
+        w = np.ones(len(pos))
+        if frac is not None:
+            for a in range(3):
+                w *= frac[:, a] if d[a] else 1.0 - frac[:, a]
+        theta = (2 * np.pi / n_total) * (g @ np.asarray(beta))
+        f = g % n_grid
+        flat.append((f[:, 0] * n_grid + f[:, 1]) * n_grid + f[:, 2])
+        cos_w.append(w * np.cos(theta))
+        sin_w.append(-w * np.sin(theta))
+        del g, w, theta, f
+    flat, cos_w, sin_w = (np.concatenate(x) for x in (flat, cos_w, sin_w))
+    a = (box_size / m / (2 * np.pi)) ** 1.5 / float(n_grid) ** 3 / m**1.5
+    power = np.zeros(n_grid**3)
+    z = np.empty(n_grid**3, np.complex128)
+    for c in range(3):
+        mom_c = np.tile(mom[:, c], len(corners))
+        z.real = np.bincount(flat, weights=cos_w * mom_c,
+                             minlength=n_grid**3)
+        z.imag = np.bincount(flat, weights=sin_w * mom_c,
+                             minlength=n_grid**3)
+        fk = scipy.fft.fftn(z.reshape((n_grid,) * 3), overwrite_x=True,
+                            workers=os.cpu_count()).ravel()
+        power += (0.5 * a * a) * (fk.real**2 + fk.imag**2)
+    del flat, cos_w, sin_w, mom_c, z, fk
+    t = np.fft.fftfreq(n_grid, 1.0 / n_grid)
+    kx, ky, kz = ((m * t + b) ** 2 for b in beta)
+    k_int = np.sqrt(kx[:, None, None] + ky[None, :, None]
+                    + kz[None, None, :]).ravel()
+    kmin = 2 * np.pi / box_size
+    n_bins = int((np.pi / cell - kmin) / kmin) + 1
+    idx = np.floor(k_int - 0.5).astype(np.int64)
+    keep = (idx >= 0) & (idx < n_bins)
+    nsamp = np.bincount(idx[keep], minlength=n_bins)
+    psum = np.bincount(idx[keep], weights=power[keep], minlength=n_bins)
+    return psum, nsamp
 
 
 def _host_nn_query(tree, n_grid, box_size, slab=32):
@@ -944,9 +1030,12 @@ def main():
             s0, s1, rows, state, **kw), 3)
         plain_ms = _time_ms(torch, lambda: nn_window.window_pass_plain(
             s0, s1, rows, state, **kw), 1)
+        least, pairs, live = _k4_bound(torch, s0, s1, rows, state, **kw)
         print(f"[K4] {N_SMALL}^3 pass {i} {kw}, "
               f"{N_SMALL_LATTICE**3} particles: bitwise equal to plain; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; pairs: {pairs} "
+              f"in the spans, {live} live; bound {least[0]:.3f} ms "
+              f"({least[1]})", flush=True)
         del out, plain
     del k4s_calls, pos_s, vals_s
 
@@ -1132,6 +1221,158 @@ def main():
     _check(n_off <= RING_MISS_MAX * N_RING**3,
            f"{n_off} cells of the 160^3 ring route off the kd-tree")
 
+    del p160, field_r, ring, idx_r, pos_r, d_r, idx_rh, excess
+    torch.cuda.empty_cache()
+
+    # ---- 10. folded spectra (range 1024 from 512^3, m = 2) ----------
+    from vpower_tpu_torch.run import pipeline as pipe_mod
+
+    n_fold = N_GRID * FOLD_M
+    fold = {"err": 0.0, "calls": []}
+
+    def fold_k1_check(args, kwargs, out):
+        """A K1 call of the fused fold against the plain version on the
+        host (a sequential index_add_ in row order)."""
+        sids, svals, n_cells = args
+        ref = sorted_scatter.deposit_sorted_plain(sids.cpu(), svals.cpu(),
+                                                  n_cells)
+        got = out.cpu()
+        fold["err"] = max(fold["err"], float((got - ref).abs().max()))
+        _check(torch.equal(got, ref), "a K1 call of the fused fold differs "
+               "from its plain version")
+
+    specs_b = {}
+    for method in ("ngp", "cic"):
+        t0 = time.perf_counter()
+        with _Capture(pipe_mod, "deposit_sorted",
+                      check=fold_k1_check) as cap:
+            specs_b[method] = vt.fused_fold_spectrum(
+                particles, N_GRID, FOLD_M, FOLD_BETA, method=method)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        _check(len(cap.calls) == 1, f"fused_fold_spectrum({method}) made "
+               f"{len(cap.calls)} K1 calls, not 1")
+        (sids, svals, n_cells), _ = cap.calls[0]
+        _check(tuple(svals.shape) == (n_p * (8 if method == "cic" else 1),
+                                      6) and n_cells == N_GRID**3,
+               f"fold K1 input {tuple(svals.shape)} -> {n_cells}")
+        ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+            sids, svals, n_cells), 5)
+        plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
+            sids, svals, n_cells), 5)
+        lib_ms = library_ms(sids, svals, n_cells)
+        bound = _k1_bound(sids, svals, n_cells)
+        fold["calls"].append({
+            "call": f"fold {method.upper()} beta {FOLD_BETA}, "
+                    f"{svals.shape[0]} rows x 6 -> {N_GRID}^3",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms})
+        print(f"[fold] fused_fold_spectrum(particles, {N_GRID}, {FOLD_M}, "
+              f"{FOLD_BETA}, method={method!r}) {run_s:.2f} s with the host "
+              f"check: its K1 call {tuple(svals.shape)} rows -> (6, "
+              f"{n_cells}) bitwise equal to the plain version on the host; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"zeros().index_add_ {lib_ms:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]}) on {smi}", flush=True)
+        del cap, sids, svals
+        torch.cuda.empty_cache()
+
+    # the main path's run, counts zeroed (also the warm-up)
+    for mod in (sorted_scatter, nn_sweep, nn_window, nn_index_sweep):
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec_fold = vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M)
+    torch.cuda.synchronize()
+    f_launches = sorted_scatter.LAUNCHES
+    print(f"[fold] fused_fold_full_spectrum(particles, {N_GRID}, {FOLD_M}) "
+          f"warm-up {time.perf_counter() - t0:.2f} s; launches: K1 "
+          f"{f_launches}, K2 {nn_sweep.LAUNCHES}, K3 "
+          f"{nn_index_sweep.LAUNCHES}, K4 {nn_window.LAUNCHES}", flush=True)
+    _check(f_launches == FOLD_M**3, f"the 8-beta sweep launched K1 "
+           f"{f_launches} times, not once a beta")
+    # kmin = 2 pi / L to the Nyquist mode pi / cell at spacing kmin: the
+    # JAX package's int((kmax - kmin) / kmin) + 1 rounds 510.99... down,
+    # so 511 bins at range 1024
+    n_fold_bins = pipe_mod._fold_bins(BOX, n_fold)
+    _check(len(spec_fold) == n_fold_bins and spec_fold.m == FOLD_M
+           and np.isfinite(spec_fold.Psum).all()
+           and np.isfinite(spec_fold.P).all(),
+           "folded spectrum not finite or wrong length")
+    torch.cuda.reset_peak_memory_stats()
+    times = _wall_runs(torch, lambda: vt.fused_fold_full_spectrum(
+        particles, N_GRID, FOLD_M))
+    print(f"[timing] fused_fold_full_spectrum {N_GRID}^3, m = {FOLD_M} (range "
+          f"{n_fold}), all {FOLD_M**3} betas, NGP momentum, {n_p} particles, "
+          f"3 runs after warm-up: min {times[0]:.4f} s, median "
+          f"{times[1]:.4f} s, spread {times[2] - times[0]:.4f} s on {smi}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    stage_of = {"_fold_targets": "targets and sort",
+                "_phased_values": "phase", "deposit_sorted": "K1",
+                "vector_power_from_complex": "FFT",
+                "bin_grid_local": "binning", "_cascade_bin": "binning"}
+    targets = [(pipe_mod, n) for n in ("_fold_targets", "_phased_values",
+                                       "deposit_sorted")] + [
+        (power_mod, n) for n in ("vector_power_from_complex",
+                                 "bin_grid_local", "_cascade_bin")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages(torch, targets) as st:
+        vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M)
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stages = {}
+    for name, sec in st.times:
+        stages[stage_of[name]] = stages.get(stage_of[name], 0.0) + sec
+    print(f"[timing] fold stages (synchronized, {total:.4f} s in all): "
+          + ", ".join(f"{n} {s:.4f} s ({s / total:.1%})"
+                      for n, s in stages.items())
+          + f"; rest {total - sum(stages.values()):.4f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # one beta, NGP and CIC, against float64 host chains
+    for method in ("ngp", "cic"):
+        t0 = time.perf_counter()
+        psum_h, nsamp_h = _host_fold_binned(pos_h, vel_h, mass_h, N_GRID,
+                                            FOLD_M, FOLD_BETA, BOX, method)
+        spec = specs_b[method]
+        _check(np.array_equal(spec.Nsample, nsamp_h.astype(np.float64)),
+               f"fold {method} Nsample differs from the host histogram "
+               f"({int(np.abs(spec.Nsample - nsamp_h).sum())} modes)")
+        errs[f"fold {method}"] = psum_err(spec, psum_h)
+        print(f"[fold] beta {FOLD_BETA} {method.upper()}: Nsample bit-exact "
+              f"vs the float64 host chain; Psum max rel err "
+              f"{errs[f'fold {method}']:.3e} (gate {FOLD_RTOL}); host chain "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _check(errs[f"fold {method}"] <= FOLD_RTOL,
+               f"fold {method} Psum rel err {errs[f'fold {method}']:.3e}")
+
+    # the folding identity against the unfolded 1024^3 momentum spectrum
+    t0 = time.perf_counter()
+    grid = vt.deposit_ngp(particles.pos, particles.vel
+                          * particles.mass[:, None], n_fold, BOX)
+    k_u, psum_u, nsamp_u = vt.real_power_binned(grid, BOX)
+    del grid
+    unfolded = vt.PowerSpectrum.from_binned(k_u, psum_u, nsamp_u)
+    torch.cuda.synchronize()
+    _check(len(unfolded) == len(spec_fold) == n_fold_bins,
+           "unfolded and folded spectra have different bins")
+    _check(np.array_equal(unfolded.Nsample, spec_fold.Nsample),
+           "the 8-beta sweep's Nsample differs from the unfolded "
+           f"{n_fold}^3 spectrum's")
+    errs["fold identity"] = psum_err(spec_fold, unfolded.Psum)
+    print(f"[fold] folding identity: the {FOLD_M**3}-beta sweep against the "
+          f"unfolded {n_fold}^3 momentum spectrum (deposit_ngp of 3 "
+          f"channels, real_power_binned, {time.perf_counter() - t0:.2f} s): "
+          f"Nsample equal over all {len(unfolded)} bins; Psum max rel err "
+          f"{errs['fold identity']:.3e} (gate {FOLD_IDENTITY_RTOL})",
+          flush=True)
+    _check(errs["fold identity"] <= FOLD_IDENTITY_RTOL,
+           f"fold identity Psum rel err {errs['fold identity']:.3e}")
+    del spec_fold, unfolded, k_u, psum_u, nsamp_u
+    torch.cuda.empty_cache()
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     def entry(name, replaces, launches, err, rec, library=None):
         return {"name": name, "route": "cuda",
@@ -1141,11 +1382,16 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
                 "bound_by": rec["bound"][1], "library_ms": library}
 
+    k1_entry = entry(
+        "sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
+        launches["sorted_scatter"] + f_launches, max(k1_err, fold["err"]),
+        {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
+        library=k1_lib_ms)
+    k1_entry["launches_by_path"] = {"nn": launches["sorted_scatter"],
+                                    "fold": f_launches}
+    k1_entry["fold"] = fold["calls"]
     kernels = [
-        entry("sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
-              launches["sorted_scatter"], k1_err,
-              {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
-              library=k1_lib_ms),
+        k1_entry,
         entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
               launches["nn_sweep"], k2["err"], k2),
         entry("nn_index_sweep", "vpower_tpu/deposit/nn_pallas.py:494",

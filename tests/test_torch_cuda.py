@@ -526,6 +526,53 @@ def test_cic_deposit_on_card_matches_cpu(cuda):
     assert torch.equal(got.cpu(), ref)
 
 
+@pytest.mark.parametrize("method,beta", [("ngp", (1, 0, 1)),
+                                         ("cic", (1, 0, 1)),
+                                         ("cic", (0, 1, 1))])
+def test_sorted_scatter_kernel_at_fold_shapes(cuda, method, beta):
+    """K1 as the fused fold calls it: the 6 phased channels (re and im of
+    the momentum) of one beta at the sorted fold targets, CIC's eight
+    targets a particle making long runs of equal ids (a folded cell
+    takes the corners of m^3 full-resolution cells); bitwise equal to
+    the plain version."""
+    rng = np.random.default_rng(21)
+    n_p, n_grid, m = 40_000, 16, 2
+    pos = torch.from_numpy(rng.random((n_p, 3), np.float32))
+    values = torch.from_numpy(rng.standard_normal((n_p, 3))
+                              .astype(np.float32))
+    ids_s, vals_s, idx_s = tpipe._fold_targets(pos, values, m, 1.0, n_grid,
+                                               method)
+    phased = tpipe._phased_values(beta, vals_s, idx_s, m * n_grid)
+    assert phased.shape == (n_p * (8 if method == "cic" else 1), 6)
+    ref = sorted_scatter.deposit_sorted(ids_s, phased, n_grid**3)
+    before = sorted_scatter.LAUNCHES
+    got = sorted_scatter.deposit_sorted(ids_s.to(cuda), phased.to(cuda),
+                                        n_grid**3)
+    torch.cuda.synchronize()
+    assert sorted_scatter.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("method,interlace", [("ngp", False), ("cic", True)])
+def test_fused_fold_sweep_on_card_matches_cpu(cuda, method, interlace):
+    """fused_fold_full_spectrum on the card: one K1 launch a beta (two
+    with ``interlace``); Nsample equal to the CPU run; Psum to float32
+    cos/sin, FFT and summation order, rtol 1e-5."""
+    rng = np.random.default_rng(22)
+    n_p = 30_000
+    p = Particles.from_numpy(
+        rng.random((n_p, 3), np.float32),
+        (rng.random(n_p) + 0.5).astype(np.float32), np.ones(n_p, np.float32),
+        rng.standard_normal((n_p, 3)).astype(np.float32), 1.0, device="cpu")
+    kw = dict(method=method, interlace=interlace, compensate=interlace)
+    s_cpu = tpipe.fused_fold_full_spectrum(p, 16, 2, **kw)
+    before = sorted_scatter.LAUNCHES
+    s_gpu = tpipe.fused_fold_full_spectrum(p.to(cuda), 16, 2, **kw)
+    assert sorted_scatter.LAUNCHES == before + 8 * (2 if interlace else 1)
+    np.testing.assert_array_equal(s_gpu.Nsample, s_cpu.Nsample)
+    np.testing.assert_allclose(s_gpu.Psum, s_cpu.Psum, rtol=1e-5)
+
+
 def test_wrapper_raises_on_non_contiguous(cuda):
     state = torch.zeros(4, 8, 8, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):

@@ -148,18 +148,21 @@ def test_ngp_spectrum_matches_jax():
 
 
 def test_unported_options_raise():
-    """SPH, interlacing and the momentum / energy quantities are not
-    ported yet: each raises and names its ROADMAP item.  CIC (the default
+    """SPH is not ported yet: it raises and names its ROADMAP item.
+    Interlacing and the momentum / energy quantities answer as the JAX
+    package does (Nsample equal, Psum rtol 1e-6); CIC (the default
     method) and exact NN answer."""
-    p, _ = _particles(100, 22)
+    p, pj = _particles(100, 22)
     with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
         tpipe.deposit(p, 8, method="sph")
     with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
         tpipe.power_spectrum(p, 8, method="sph")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tpipe.power_spectrum(p, 8, method="ngp", interlace=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6a"):
-        tpipe.power_spectrum(p, 8, method="ngp", quantity="momentum")
+    for kw in (dict(interlace=True), dict(quantity="momentum"),
+               dict(quantity="energy")):
+        s = tpipe.power_spectrum(p, 8, method="ngp", **kw)
+        sj = jpipe.power_spectrum(pj, 8, method="ngp", **kw)
+        np.testing.assert_array_equal(s.Nsample, sj.Nsample)
+        np.testing.assert_allclose(s.Psum, sj.Psum, rtol=1e-6)
     for field in (tpipe.deposit(p, 8), tpipe.deposit(p, 8, method="nn",
                                                      exact=True)):
         assert field.velocity.shape == (3, 8, 8, 8)

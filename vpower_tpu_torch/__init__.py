@@ -6,7 +6,10 @@ the same inputs.  Work runs on the device of the input tensors: on a
 CUDA tensor the hand-written kernels of ``csrc/`` (the sorted deposit,
 the value- and index-carry nearest-neighbour sweeps and the exact-NN
 window sweep) launch, built with ``nvcc`` at first use; on a CPU tensor
-their plain PyTorch versions run.  Importing
+their plain PyTorch versions run.  Folded spectra (``folded_spectrum``,
+``fused_fold_full_spectrum``, ...) reach a dynamic range ``m * n``
+with (n)^3 grids; the fused ones deposit each beta's phased channels
+with the same sorted-deposit kernel.  Importing
 the package needs neither a card nor ``nvcc``, and never imports JAX.
 
 Quickstart (the unfolded velocity spectrum of the JAX quickstart)::
@@ -21,7 +24,7 @@ Quickstart (the unfolded velocity spectrum of the JAX quickstart)::
 """
 
 from .core.particles import Particles
-from .core.field import BoxField
+from .core.field import BoxField, FoldedField
 from .io.synthetic import (
     gaussian_random_field,
     grid_positions,
@@ -37,13 +40,32 @@ from .deposit.nn import (
 )
 from .deposit.nn_window import nn_exact_assign, nn_window_gather
 from .deposit.scatter import deposit_ngp
-from .run.pipeline import deposit, power_spectrum, spectrum_from_field
+from .run.pipeline import (
+    cross_spectrum,
+    deposit,
+    folded_spectrum,
+    folded_spectrum_sweep,
+    fused_fold_full_spectrum,
+    fused_fold_spectrum,
+    power_spectrum,
+    spectrum_from_field,
+    spectrum_from_folded,
+)
 from .spectrum.power import real_power_binned, shell_bin, shell_bin_rfft
-from .spectrum.spectrum import PowerSpectrum
+from .spectrum.spectrum import (
+    PowerSpectrum,
+    SpectrumList,
+    beta_half_space,
+    empty_spectrum_like,
+    init_beta_space,
+    random_beta_sequence,
+    relative_diff,
+)
 
 __all__ = [
     "Particles",
     "BoxField",
+    "FoldedField",
     "gaussian_random_field",
     "grid_positions",
     "particles_from_field",
@@ -59,8 +81,20 @@ __all__ = [
     "deposit",
     "power_spectrum",
     "spectrum_from_field",
+    "folded_spectrum",
+    "folded_spectrum_sweep",
+    "fused_fold_spectrum",
+    "fused_fold_full_spectrum",
+    "cross_spectrum",
+    "spectrum_from_folded",
     "real_power_binned",
     "shell_bin",
     "shell_bin_rfft",
     "PowerSpectrum",
+    "SpectrumList",
+    "relative_diff",
+    "empty_spectrum_like",
+    "beta_half_space",
+    "init_beta_space",
+    "random_beta_sequence",
 ]

@@ -4,19 +4,29 @@ from .power import (
     scalar_power,
     vector_power_rfft,
     scalar_power_rfft,
+    vector_power_from_complex,
+    scalar_power_from_complex,
+    cross_power,
+    interlaced_vector_power,
+    interlaced_power_from_complex,
     real_power_binned,
     window_compensation,
     bin_grid,
+    bin_grid_local,
     shell_bin,
+    shell_bin_local,
     shell_bin_rfft,
     hermitian_weights,
     default_k_bins,
 )
-from .spectrum import PowerSpectrum
+from .spectrum import PowerSpectrum, SpectrumList
 
 __all__ = [
     "power_norm", "vector_power", "scalar_power",
-    "vector_power_rfft", "scalar_power_rfft", "real_power_binned",
-    "window_compensation", "bin_grid", "shell_bin", "shell_bin_rfft",
-    "hermitian_weights", "default_k_bins", "PowerSpectrum",
+    "vector_power_rfft", "scalar_power_rfft", "vector_power_from_complex",
+    "scalar_power_from_complex", "cross_power", "interlaced_vector_power",
+    "interlaced_power_from_complex", "real_power_binned",
+    "window_compensation", "bin_grid", "bin_grid_local", "shell_bin",
+    "shell_bin_local", "shell_bin_rfft", "hermitian_weights",
+    "default_k_bins", "PowerSpectrum", "SpectrumList",
 ]

@@ -27,9 +27,16 @@ __all__ = [
     "scalar_power",
     "vector_power_rfft",
     "scalar_power_rfft",
+    "vector_power_from_complex",
+    "scalar_power_from_complex",
+    "cross_power",
+    "interlaced_vector_power",
+    "interlaced_power_from_complex",
     "window_compensation",
     "bin_grid",
+    "bin_grid_local",
     "shell_bin",
+    "shell_bin_local",
     "shell_bin_rfft",
     "hermitian_weights",
     "default_k_bins",
@@ -82,6 +89,79 @@ def scalar_power_rfft(f: torch.Tensor, box_size: float) -> torch.Tensor:
     """Half-space power grid of a real (N, N, N) scalar field."""
     a = power_norm(box_size, f.shape[0])
     return _power(torch.fft.rfftn(f)) * (a * a)
+
+
+def vector_power_from_complex(f: torch.Tensor, box_size: float) -> torch.Tensor:
+    """Power grid of a complex CHANNELS-FIRST (C, N, N, N) field (folded
+    boxes; reference ``_FFTW_vector_power``, ``interp.py:1390-1405``)."""
+    a = power_norm(box_size, f.shape[-1])
+    acc = None
+    for c in range(f.shape[0]):
+        p = _power(torch.fft.fftn(f[c]))
+        acc = p if acc is None else acc + p
+    return acc * (a * a)
+
+
+def scalar_power_from_complex(f: torch.Tensor, box_size: float) -> torch.Tensor:
+    """Power grid of a complex (N, N, N) field (reference
+    ``_FFTW_scalar_power``, ``interp.py:1424-1437``)."""
+    a = power_norm(box_size, f.shape[0])
+    return _power(torch.fft.fftn(f)) * (a * a)
+
+
+def cross_power(a: torch.Tensor, b: torch.Tensor,
+                box_size: float) -> torch.Tensor:
+    """Cross-power grid of two real fields (scalar or CHANNELS-FIRST
+    vector), ``P_ab = 0.5 * sum_c Re(a F[a_c] conj(a F[b_c]))``; the
+    ``a == b`` case is :func:`vector_power` / :func:`scalar_power`."""
+    if a.shape != b.shape:
+        raise ValueError("cross_power requires matching shapes")
+    norm = power_norm(box_size, a.shape[-1])
+    if a.ndim == 3:
+        a, b = a[None], b[None]
+    acc = None
+    for c in range(a.shape[0]):
+        fa, fb = torch.fft.fftn(a[c]), torch.fft.fftn(b[c])
+        p = 0.5 * (fa.real * fb.real + fa.imag * fb.imag)
+        acc = p if acc is None else acc + p
+    return acc * (norm * norm)
+
+
+def _interlaced(f1: torch.Tensor, f2: torch.Tensor, box_size: float,
+                theta: torch.Tensor) -> torch.Tensor:
+    """``0.5 sum_c |a (F[f1_c] + e^{-i theta} F[f2_c]) / 2|^2``."""
+    a = power_norm(box_size, f1.shape[-1])
+    phase = torch.complex(torch.cos(theta), -torch.sin(theta))
+    acc = None
+    for c in range(f1.shape[0]):
+        fk = 0.5 * (torch.fft.fftn(f1[c]) + phase * torch.fft.fftn(f2[c]))
+        p = _power(fk)
+        acc = p if acc is None else acc + p
+    return acc * (a * a)
+
+
+def interlaced_vector_power(v: torch.Tensor, v_shifted: torch.Tensor,
+                            box_size: float) -> torch.Tensor:
+    """Interlaced power grid of real CHANNELS-FIRST (C, N, N, N) fields:
+    ``v_shifted`` is the deposit of positions shifted by half a cell per
+    axis, its transform rotated back by ``e^{-i theta}``, ``theta = pi
+    (nx + ny + nz) / N``, so the odd images of the deposition window
+    cancel (Hockney & Eastwood)."""
+    n_grid = v.shape[-1]
+    t = div(math.pi * _wrapped_index(n_grid, v.device).to(v.dtype),
+            float(n_grid))
+    theta = t[:, None, None] + t[None, :, None] + t[None, None, :]
+    return _interlaced(v, v_shifted, box_size, theta)
+
+
+def interlaced_power_from_complex(f1: torch.Tensor, f2: torch.Tensor,
+                                  box_size: float,
+                                  theta: torch.Tensor) -> torch.Tensor:
+    """The folded form of :func:`interlaced_vector_power`: ``f2`` is the
+    fold of the deposit shifted by half a FULL-RESOLUTION cell, and
+    ``theta = pi (Kx + Ky + Kz) / N_total`` on the global mode lattice
+    ``K = m t + beta``."""
+    return _interlaced(f1, f2, box_size, theta)
 
 
 def _wrapped_index(n_grid: int, device) -> torch.Tensor:
@@ -181,9 +261,32 @@ def bin_grid(
 ) -> torch.Tensor:
     """(N, N, N) int32 lattice of shell-bin indices; ``n_bins`` = dropped.
     ``|k|`` uses the folded-spectrum shift ``k_eff = k_grid + kshift``."""
-    ks = _axis_freqs(n_grid, box_size, dtype, device)
-    kx, ky, kz = (ks + torch.tensor(s, dtype=dtype, device=device)
-                  for s in kshift)
+    return bin_grid_local((n_grid,) * 3, n_grid, box_size, kmin, spacing,
+                          n_bins, (0, 0, 0), kshift, dtype=dtype,
+                          device=device)
+
+
+def bin_grid_local(
+    local_shape: Sequence[int],
+    n_full: int,
+    box_size: float,
+    kmin: float,
+    spacing: float,
+    n_bins: int,
+    starts: Sequence[int],
+    kshift=(0.0, 0.0, 0.0),
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Shell-bin indices of the block ``starts + [0, local_shape)`` of
+    the full (n_full)^3 lattice, so blocks bin onto one global bin set.
+    ``kshift`` is three floats (each rounded once to ``dtype``) or a
+    (3,) tensor already in ``dtype``."""
+    ks = _axis_freqs(n_full, box_size, dtype, device)
+    if not isinstance(kshift, torch.Tensor):
+        kshift = torch.tensor(kshift, dtype=dtype, device=device)
+    kx, ky, kz = (ks[int(starts[i]):int(starts[i]) + local_shape[i]]
+                  + kshift[i] for i in range(3))
     k = torch.sqrt(
         (kx**2)[:, None, None] + (ky**2)[None, :, None] + (kz**2)[None, None, :]
     )
@@ -281,6 +384,30 @@ def shell_bin(
     bins = bin_grid(n_grid, box_size, kmin, spacing, n_bins, kshift,
                     dtype=dtype, device=device)
     psum, nsample = _cascade_bin(power, bins, n_bins)
+    k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
+                                              device=device)
+    return k_centers, psum, nsample
+
+
+def shell_bin_local(
+    power_local: torch.Tensor,
+    n_full: int,
+    box_size: float,
+    starts: Sequence[int],
+    kmin: Optional[float] = None,
+    kmax: Optional[float] = None,
+    spacing: Optional[float] = None,
+    kshift: Sequence[float] = (0.0, 0.0, 0.0),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bin a local block of a larger grid on the full grid's bin set;
+    the caller sums the blocks' results."""
+    dtype, device = power_local.dtype, power_local.device
+    kmin, kmax, spacing, n_bins = default_k_bins(
+        box_size, box_size / n_full, kmin, kmax, spacing
+    )
+    bins = bin_grid_local(power_local.shape, n_full, box_size, kmin, spacing,
+                          n_bins, starts, kshift, dtype=dtype, device=device)
+    psum, nsample = _cascade_bin(power_local, bins, n_bins)
     k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
                                               device=device)
     return k_centers, psum, nsample
