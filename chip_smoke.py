@@ -5,13 +5,15 @@
 
 Drives the port's paths through the entry points a user calls
 (``power_spectrum``, ``deposit``, ``spectrum_from_field``,
-``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``) on 10,077,696
+``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``,
+``fused_fold_full_spectrum``, ``sph_interp_to_field``,
+``check_conservation``, ``save_field``, ``BrickStore``) on 10,077,696
 particles and a 512^3 grid: the fast NN, NGP and CIC (the default
-method) velocity spectra, the exact NN spectrum (window sweep), and the
-index path.  The particles are made on the card from a seeded
-``torch.Generator`` with the shapes of the JAX package's ``bench.py``
-workload: a 256^3 Gaussian random velocity field sampled by a 216^3
-lattice jittered by 3 cells.
+method) velocity spectra, the exact NN spectrum (window sweep), the
+index path, the folded spectrum and the SPH spectrum.  The particles
+are made on the card from a seeded ``torch.Generator`` with the shapes
+of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
+velocity field sampled by a 216^3 lattice jittered by 3 cells.
 
 Phases (each prints a line; every failed check raises, so the exit code
 is non-zero):
@@ -67,10 +69,31 @@ is non-zero):
    times of a fourth; and the folding identity: Nsample equal over all
    511 bins and Psum within 1e-4 of the unfolded 1024^3 momentum
    spectrum (``deposit_ngp`` of 3 channels, ``real_power_binned``).
+11. sph: the same particles with log-normal densities ``exp(0.7 z)``
+   (h ~0.4-5 cells, ~1.1% clamped at 2.5 cells), bulk velocity removed
+   and shifted to the origin as ``load_snapshot`` does; 512^3, s_max 2
+   (125 offsets).  ``sph_deposit``: its first two K1 calls (the second
+   onto the carry) bitwise equal to the plain version run on the host,
+   timed beside its bound, one ``torch.roll`` timed on each axis.  A
+   float64 chain on the card (the JAX package's unsorted formulation,
+   ``index_add_``, complex128 FFT, host histogram): Nsample exact,
+   momentum Psum within 1e-5, momentum grid within 1e-4 of its max,
+   grid mass within 1e-6 (the velocity Psum and the cells covered in one
+   chain only are printed).  The main path, ``power_spectrum(particles,
+   512, method="sph")``: launch counts; ``check_conservation`` (mass
+   within 1e-6); three timed runs and the stages of a fourth.
+   ``sph_interp_to_field(clamp_support=False)``: its levels, launches,
+   mass within 1e-6.  ``sph_deposit`` of 157,464 particles at 128^3 on
+   the card bitwise equal to the CPU run, given the same h.
+12. io: ``save_field`` / ``load_field`` of that 128^3 field and a
+   ``BrickStore`` (nbrick 2, n_brick 64, npz) of its bricks written and
+   read back on the card, bitwise; the store's streaming fold against
+   ``fold_box_field`` within 1e-5.
 
 The kernel summary is one JSON line: per kernel its launches on the main
-path's run (K1: the NN path's and the fold's, by path under
-``launches_by_path``, its fold calls under ``fold``), its largest error
+path's run (K1: the NN path's, the fold's and the SPH spectrum's, by
+path under ``launches_by_path``, its fold and SPH calls under ``fold``
+and ``sph``), its largest error
 against the plain version, its time, the plain version's, the library
 call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
@@ -109,6 +132,11 @@ FOLD_M = 2               # fold factor: range 1024 from a 512^3 grid
 FOLD_BETA = (1, 0, 1)    # the beta held to the float64 host chains
 FOLD_RTOL = 1e-5         # one beta's Psum against its float64 host chain
 FOLD_IDENTITY_RTOL = 1e-4  # the 8-beta sweep against the 1024^3 spectrum
+SPH_S_MAX = 2            # footprint (2 s_max + 1)^3 = 125 offsets
+SPH_LOG_SIGMA = 0.7      # density exp(0.7 z): h over ~0.4-5 cells
+SPH_PSUM_RTOL = 1e-5     # SPH momentum Psum against the float64 chain
+SPH_GRID_RTOL = 1e-4     # momentum grid max |err| over its max
+SPH_MASS_RTOL = 1e-6     # grid mass against the particles' (float64 sums)
 # Share of cells whose NN is misassigned.  The descent's own class at
 # this occupancy (0.075 particles per cell) is ~2.3e-2: the finest level
 # pre-merges the rank-0 seeds (nn.py _PREMERGE_MIN), which a CPU run of
@@ -145,18 +173,20 @@ def _check(cond, msg):
 class _Capture:
     """Record the arguments (and with ``keep``, the results) of every
     call of ``module.name`` while forwarding it, then restore it; with
-    ``check``, call ``check(args, kwargs, result)`` after each call."""
+    ``check``, call ``check(args, kwargs, result)`` after each call;
+    ``record=False`` keeps no arguments (calls whose inputs are grids)."""
 
-    def __init__(self, module, name, keep=False, check=None):
+    def __init__(self, module, name, keep=False, check=None, record=True):
         self.module, self.name, self.keep = module, name, keep
-        self.check = check
+        self.check, self.record = check, record
         self.calls, self.results = [], []
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapper(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            if self.record:
+                self.calls.append((args, kwargs))
             out = self.orig(*args, **kwargs)
             if self.keep:
                 self.results.append(out)
@@ -516,6 +546,350 @@ def _build_all(names):
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.load, names))
     return _build.BUILD_LOG
+
+
+def _sph_chain64(torch, pos, values, h, n_grid, box_size, s_max):
+    """float64 SPH deposit on the card in the JAX package's unsorted
+    formulation (vpower_tpu/deposit/sph.py:124-168), from the float32
+    inputs: per offset the target cell (base + d) mod n and the
+    cubic-spline weight normalized over the offsets, ``index_add_`` into
+    a float64 (C, n, n, n) grid; no sort, no K1, no roll."""
+    dev = pos.device
+    cell = box_size / n_grid
+    p = torch.remainder(pos.double(), box_size)
+    hh = torch.clamp(h.double(), 1e-6 * cell, (s_max + 0.5) * cell)
+    base = torch.floor(p / cell).long()
+    vals = values.double()
+    rng = range(-s_max, s_max + 1)
+    offs = [(a, b, c) for a in rng for b in rng for c in rng]
+
+    def weight(d):
+        dd = torch.tensor(d, dtype=torch.float64, device=dev)
+        delta = p - ((base.double() + dd) + 0.5) * cell
+        delta = delta - box_size * torch.round(delta / box_size)
+        q = torch.sqrt((delta * delta).sum(dim=1)) / hh
+        m = torch.clamp(1.0 - q, min=0.0)
+        w = torch.where(q < 0.5, 1.0 - 6.0 * q**2 + 6.0 * q**3,
+                        2.0 * m**3)
+        return torch.clamp(w, min=0.0)
+
+    wsum = torch.zeros(len(p), dtype=torch.float64, device=dev)
+    for d in offs:
+        wsum += weight(d)
+    degenerate = wsum <= 0
+    wsum = torch.where(degenerate, 1.0, wsum)
+    grid = torch.zeros((vals.shape[1], n_grid**3), dtype=torch.float64,
+                       device=dev)
+    for d in offs:
+        w = torch.where(degenerate, 1.0 if d == (0, 0, 0) else 0.0,
+                        weight(d) / wsum)
+        t = torch.remainder(base + torch.tensor(d, device=dev), n_grid)
+        flat = (t[:, 0] * n_grid + t[:, 1]) * n_grid + t[:, 2]
+        grid.index_add_(1, flat, (vals * w[:, None]).T)
+    return grid.reshape((vals.shape[1],) + (n_grid,) * 3)
+
+
+def _card_power64(torch, v, box_size):
+    """float64 P = 0.5 sum_c |a F[v_c]|^2 of a (3, n, n, n) float64
+    field on the card (complex128 FFT), copied to the host; the
+    normalization of ``_host_power``."""
+    n = v.shape[-1]
+    a = (box_size / (2 * np.pi)) ** 1.5 / float(n) ** 3
+    power = torch.zeros((n,) * 3, dtype=torch.float64, device=v.device)
+    for c in range(3):
+        fk = torch.fft.fftn(v[c]) * a
+        power += 0.5 * (fk.real**2 + fk.imag**2)
+        del fk
+    return power.cpu().numpy()
+
+
+def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
+               kernel_modules):
+    """[sph]: ``power_spectrum(method="sph")`` at full width (see the
+    module docstring, phase 11).  Returns the K1 record of the SPH call,
+    the main path's launch count, the largest K1 error against the plain
+    version and the 128^3 SPH field for the [io] phase."""
+    import dataclasses
+
+    from vpower_tpu_torch.deposit import sorted_scatter, sph
+    from vpower_tpu_torch.spectrum import power as power_mod
+
+    dev = particles.pos.device
+    box = particles.box_size
+    cell = box / n_grid
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def lognormal(p):
+        z = torch.randn(len(p), generator=gen, device=dev)
+        return dataclasses.replace(p, density=torch.exp(SPH_LOG_SIGMA * z))
+
+    t0 = time.perf_counter()
+    p = lognormal(particles).remove_bulk_velocity().shift_to_origin()
+    h = p.smoothing_length()
+    hc = (h / cell).double()
+    clamp = SPH_S_MAX + 0.5
+    print(f"[sph] {len(p)} particles, density exp({SPH_LOG_SIGMA} z), bulk "
+          f"velocity removed, shifted to the origin: h / cell min "
+          f"{float(hc.min()):.3f}, mean {float(hc.mean()):.3f}, max "
+          f"{float(hc.max()):.3f}; {float((hc > clamp).double().mean()):.4%} "
+          f"clamped at {clamp} cells; {n_grid}^3, s_max {SPH_S_MAX} "
+          f"({(2 * SPH_S_MAX + 1) ** 3} offsets), cubic spline, periodic",
+          flush=True)
+    values = torch.cat([p.vel * p.mass[:, None], p.mass[:, None]], dim=1)
+    del hc
+
+    # (a) the first two K1 calls (the second onto a carry) against the
+    # plain version on the host, on copies of their inputs
+    rec = {"checked": 0, "err": 0.0}
+
+    def k1_check(args, kwargs, out):
+        if rec["checked"] == 2:
+            return
+        sids, svals, n_cells = args
+        carry = kwargs.get("carry")
+        ref = sorted_scatter.deposit_sorted_plain(
+            sids.cpu(), svals.cpu(), n_cells,
+            None if carry is None else carry.cpu())
+        got = out.cpu()
+        rec["err"] = max(rec["err"], float((got - ref).abs().max()))
+        _check(torch.equal(got, ref), f"SPH K1 call {rec['checked']} "
+               f"differs from its plain version")
+        if carry is not None:
+            rec["call"] = (sids, svals, n_cells, carry)
+        rec["checked"] += 1
+
+    with _Capture(sorted_scatter, "deposit_sorted", check=k1_check,
+                  record=False):
+        grid = sph.sph_deposit(p.pos, values, h, n_grid, box,
+                               s_max=SPH_S_MAX)
+    torch.cuda.synchronize()
+    sids, svals, n_cells, carry = rec.pop("call")
+    _check(rec["checked"] == 2 and tuple(svals.shape) == (len(p), 4),
+           "SPH K1 inputs")
+    ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+        sids, svals, n_cells, carry=carry), 5)
+    plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
+        sids, svals, n_cells, carry), 5)
+    ids64, vals_t = sids.long(), svals.T
+    lib_ms = _time_ms(torch, lambda: carry.index_add(1, ids64, vals_t), 5)
+    bound = _bound(_nbytes(sids, svals, carry) + 4 * carry.numel(),
+                   svals.numel())
+    acc = carry.reshape((4,) + (n_grid,) * 3)
+    roll_ms = [_time_ms(torch, lambda: torch.roll(acc, 1, dims=ax), 5)
+               for ax in (1, 2, 3)]
+    k1_rec = {"call": f"SPH offset with carry, {svals.shape[0]} rows x 4 "
+                      f"-> {n_grid}^3",
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+              "bound_by": bound[1], "library_ms": lib_ms}
+    print(f"[sph] sph_deposit {time.perf_counter() - t0:.1f} s with the host "
+          f"checks: its first two K1 calls ({tuple(svals.shape)} rows -> "
+          f"(4, {n_cells}), the second onto the carry) bitwise equal to the "
+          f"plain version on the host; one offset with carry: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, carry.index_add "
+          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}); "
+          f"torch.roll by 1 of the (4, {n_grid}^3) grid along x, y, z: "
+          + ", ".join(f"{t:.3f}" for t in roll_ms) + f" ms on {smi}",
+          flush=True)
+    del sids, svals, carry, acc, ids64, vals_t
+
+    # (c) the float64 chain: grids, then spectra
+    t0 = time.perf_counter()
+    g64 = _sph_chain64(torch, p.pos, values, h, n_grid, box, SPH_S_MAX)
+    m_true = float(p.mass.double().sum())
+    mass_rel = abs(float(grid[3].double().sum()) - m_true) / m_true
+    mom_err = float((grid[:3].double() - g64[:3]).abs().max()) \
+        / float(g64[:3].abs().max())
+    one_only = int(((grid[3] > 0) != (g64[3] > 0)).sum())
+    del grid
+    v64 = torch.where(g64[3] > 0, g64[:3] / torch.where(g64[3] > 0, g64[3],
+                                                        1.0), 0.0)
+    psum_v64, _ = _host_shell_bin(n_grid, box, _card_power64(torch, v64,
+                                                             box))
+    del v64
+    psum_p64, _ = _host_shell_bin(n_grid, box, _card_power64(torch, g64[:3],
+                                                             box))
+    del g64
+    torch.cuda.empty_cache()
+    chain_s = time.perf_counter() - t0
+
+    # the main path's run, counts zeroed (also the warm-up)
+    for mod in kernel_modules:
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    spec_v = vt.power_spectrum(p, n_grid, method="sph")
+    torch.cuda.synchronize()
+    launches = sorted_scatter.LAUNCHES
+    others = sum(m.LAUNCHES for m in kernel_modules) - launches
+    print(f"[sph] power_spectrum(particles, {n_grid}, method='sph') "
+          f"launches: K1 {launches}, K2-K4 {others}", flush=True)
+    _check(launches == (2 * SPH_S_MAX + 1) ** 3 and others == 0,
+           "the SPH run did not launch K1 once an offset")
+    field = vt.deposit(p, n_grid, method="sph")
+    spec_p = vt.spectrum_from_field(field, quantity="momentum")
+    for spec, tag in ((spec_v, "velocity"), (spec_p, "momentum")):
+        _check(np.isfinite(spec.Psum).all() and len(spec) == len(nsamp_host),
+               f"SPH {tag} spectrum not finite or wrong length")
+        _check(np.array_equal(spec.Nsample, nsamp_host.astype(np.float64)),
+               f"SPH {tag} Nsample differs from the host histogram")
+    err_p, err_v = psum_err(spec_p, psum_p64), psum_err(spec_v, psum_v64)
+    print(f"[sph] against the float64 chain ({chain_s:.1f} s: unsorted "
+          f"index_add_ deposit, complex128 FFT on the card, host "
+          f"histogram): Nsample bit-exact; momentum Psum max rel err "
+          f"{err_p:.3e} (gate {SPH_PSUM_RTOL}); velocity Psum {err_v:.3e} "
+          f"(printed); momentum grid max |err| / max {mom_err:.3e} (gate "
+          f"{SPH_GRID_RTOL}); grid mass rel err {mass_rel:.3e} (gate "
+          f"{SPH_MASS_RTOL}); cells covered in one chain only: {one_only}",
+          flush=True)
+    _check(err_p <= SPH_PSUM_RTOL, f"SPH momentum Psum rel err {err_p:.3e}")
+    _check(mom_err <= SPH_GRID_RTOL, f"SPH momentum grid err {mom_err:.3e}")
+    _check(mass_rel <= SPH_MASS_RTOL, f"SPH grid mass rel err {mass_rel:.3e}")
+
+    # (d) conservation
+    rep = vt.check_conservation(p, field)
+    print("[sph] check_conservation: " + str(rep).replace("\n", "; "),
+          flush=True)
+    _check(abs(rep.mass - 1.0) <= SPH_MASS_RTOL,
+           f"check_conservation mass {rep.mass!r}")
+    del field
+
+    # timing: the wall, then the stages of a separate synchronized run
+    torch.cuda.reset_peak_memory_stats()
+    times = _wall_runs(torch, lambda: vt.power_spectrum(p, n_grid,
+                                                        method="sph"))
+    print(f"[timing] SPH spectrum {n_grid}^3, s_max {SPH_S_MAX}, {len(p)} "
+          f"particles, 3 runs after warm-up: min {times[0]:.4f} s, median "
+          f"{times[1]:.4f} s, spread {times[2] - times[0]:.4f} s on {smi}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    targets = [(sph, "_sorted_rows"), (sph, "_axis_sq"),
+               (sph, "_weight_sum"), (sph, "deposit_offsets_rolled"),
+               (sorted_scatter, "deposit_sorted"), (torch, "roll"),
+               (power_mod, "vector_power_rfft"),
+               (power_mod, "shell_bin_rfft")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages(torch, targets) as st:
+        vt.power_spectrum(p, n_grid, method="sph")
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    sec = {}
+    for name, s in st.times:
+        sec[name] = sec.get(name, 0.0) + s
+    n_roll = sum(name == "roll" for name, _ in st.times)
+    stages = {"sort": sec["_sorted_rows"],
+              "norm pass (axis terms + 125 weights)": sec["_axis_sq"]
+              + sec["_weight_sum"],
+              "weights and svals * w": sec["deposit_offsets_rolled"]
+              - sec["deposit_sorted"] - sec["roll"],
+              f"K1 ({launches} launches)": sec["deposit_sorted"],
+              f"torch.roll ({n_roll})": sec["roll"],
+              "FFT": sec["vector_power_rfft"],
+              "binning": sec["shell_bin_rfft"]}
+    print(f"[timing] SPH stages (synchronized, {total:.4f} s in all): "
+          + ", ".join(f"{n} {s:.4f} s ({s / total:.1%})"
+                      for n, s in stages.items())
+          + f"; rest {total - sum(stages.values()):.4f} s; K1 "
+          f"{ms:.3f} ms a launch, roll {np.mean(roll_ms):.3f} ms (CUDA "
+          f"events)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (e) no clamp: the multi-resolution levels
+    levels = []
+    with _Capture(sph, "sph_deposit_multires",
+                  check=lambda a, kw, out: levels.append(kw["levels"]),
+                  record=False):
+        sorted_scatter.LAUNCHES = 0
+        field = sph.sph_interp_to_field(p, n_grid, clamp_support=False)
+        torch.cuda.synchronize()
+    multi_launches = sorted_scatter.LAUNCHES
+    m_rel = abs(float(field.mass.double().sum()) - m_true) / m_true
+    print(f"[sph] sph_interp_to_field(clamp_support=False): {levels[0]} "
+          f"levels, K1 launches {multi_launches}; mass rel err {m_rel:.3e} "
+          f"(gate {SPH_MASS_RTOL})", flush=True)
+    _check(multi_launches == levels[0] * (2 * SPH_S_MAX + 1) ** 3,
+           "multires K1 launches")
+    _check(m_rel <= SPH_MASS_RTOL, f"multires mass rel err {m_rel:.3e}")
+    del field, p, values, h
+    torch.cuda.empty_cache()
+
+    # (b) the whole sph_deposit at 128^3 on the card against the CPU
+    t0 = time.perf_counter()
+    pos_s = vt.grid_positions(N_SMALL_LATTICE, BOX, generator=gen,
+                              jitter=JITTER)
+    n_s = pos_s.shape[0]
+    small = lognormal(vt.Particles(
+        pos=pos_s, mass=torch.full((n_s,), 1.0 / n_s, device=dev),
+        density=torch.ones(n_s, device=dev),
+        vel=torch.randn((n_s, 3), generator=gen, device=dev), box_size=BOX))
+    h_s = small.smoothing_length()
+    vals_s = torch.cat([small.vel * small.mass[:, None],
+                        small.mass[:, None]], dim=1)
+    got = sph.sph_deposit(small.pos, vals_s, h_s, N_SMALL, BOX,
+                          s_max=SPH_S_MAX)
+    ref = sph.sph_deposit(small.pos.cpu(), vals_s.cpu(), h_s.cpu(), N_SMALL,
+                          BOX, s_max=SPH_S_MAX)
+    same = torch.equal(got.cpu(), ref)
+    print(f"[sph] sph_deposit at {N_SMALL}^3, {n_s} particles, s_max "
+          f"{SPH_S_MAX}, given h: the card run bitwise equal to the CPU run: "
+          f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    _check(same, "the 128^3 SPH deposit on the card differs from the CPU")
+    rec["launches"], rec["k1"] = launches, k1_rec
+    return rec, vt.deposit(small, N_SMALL, method="sph")
+
+
+def _io_phase(torch, vt, field):
+    """[io]: a checkpoint and a brick store of ``field`` written and read
+    back on the card, bitwise; the streaming fold against the in-memory
+    fold."""
+    import tempfile
+
+    from vpower_tpu_torch.core.field import BoxField
+    from vpower_tpu_torch.io import checkpoint
+    from vpower_tpu_torch.spectrum.fold import fold_box_field
+
+    n = field.n_grid
+    nb = n // 2
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        checkpoint.save_field(os.path.join(d, "field"), field)
+        back = checkpoint.load_field(os.path.join(d, "field"))
+        _check(back.velocity.is_cuda and back.cell_size == field.cell_size
+               and torch.equal(back.velocity, field.velocity)
+               and torch.equal(back.mass, field.mass),
+               "save_field / load_field round trip")
+        store = vt.BrickStore(os.path.join(d, "bricks"), 2, nb,
+                              field.box_size / 2)
+        os.makedirs(store.directory)
+        sl = [slice(0, nb), slice(nb, n)]
+        for r in range(2):
+            for s in range(2):
+                for t in range(2):
+                    ix = (sl[r], sl[s], sl[t])
+                    store.save_brick(r, s, t, BoxField(
+                        velocity=field.velocity[(slice(None),) + ix],
+                        mass=field.mass[ix], cell_size=field.cell_size))
+        store.save()
+        loaded = vt.BrickStore.load(store.directory)
+        for r in range(2):
+            for s in range(2):
+                for t in range(2):
+                    ix = (sl[r], sl[s], sl[t])
+                    b = loaded[r, s, t]
+                    _check(b.mass.is_cuda and torch.equal(
+                        b.velocity, field.velocity[(slice(None),) + ix])
+                        and torch.equal(b.mass, field.mass[ix]),
+                        f"brick {(r, s, t)} round trip")
+        folded = loaded.fold(2, FOLD_BETA)
+        ref = fold_box_field(field, 2, FOLD_BETA)
+        fold_err = float((folded.field - ref.field).abs().max()) \
+            / float(ref.field.abs().max())
+        print(f"[io] save_field / load_field of the {n}^3 SPH field and a "
+              f"BrickStore (nbrick 2, n_brick {nb}, npz) saved and read "
+              f"back on the card: bitwise; the streaming fold (m 2, beta "
+              f"{FOLD_BETA}) against fold_box_field: max |err| / max "
+              f"{fold_err:.3e} (gate 1e-5); {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        _check(fold_err <= 1e-5, f"streaming fold err {fold_err:.3e}")
 
 
 def main():
@@ -1373,6 +1747,14 @@ def main():
     del spec_fold, unfolded, k_u, psum_u, nsamp_u
     torch.cuda.empty_cache()
 
+    # ---- 11. SPH (512^3, 125 offsets) and 12. I/O ------------------
+    sph_rec, field_small = _sph_phase(
+        torch, vt, particles, N_GRID, nsamp_host, smi, psum_err,
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    _io_phase(torch, vt, field_small)
+    del field_small
+    torch.cuda.empty_cache()
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     def entry(name, replaces, launches, err, rec, library=None):
         return {"name": name, "route": "cuda",
@@ -1384,12 +1766,15 @@ def main():
 
     k1_entry = entry(
         "sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
-        launches["sorted_scatter"] + f_launches, max(k1_err, fold["err"]),
+        launches["sorted_scatter"] + f_launches + sph_rec["launches"],
+        max(k1_err, fold["err"], sph_rec["err"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         library=k1_lib_ms)
     k1_entry["launches_by_path"] = {"nn": launches["sorted_scatter"],
-                                    "fold": f_launches}
+                                    "fold": f_launches,
+                                    "sph": sph_rec["launches"]}
     k1_entry["fold"] = fold["calls"]
+    k1_entry["sph"] = [sph_rec["k1"]]
     kernels = [
         k1_entry,
         entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",

@@ -21,6 +21,8 @@ from vpower_tpu.io import synthetic as jsyn
 from vpower_tpu_torch.core.field import BoxField
 from vpower_tpu_torch.core.particles import Particles
 from vpower_tpu_torch.io import synthetic as tsyn
+from vpower_tpu_torch.spectrum import fold as tfold
+from vpower_tpu_torch.spectrum import power as tpower
 
 torch.set_num_threads(1)
 
@@ -122,9 +124,14 @@ def test_synthetic_particles_shapes():
 
 def test_import_does_not_import_jax():
     code = ("import sys, vpower_tpu_torch; "
-            "from vpower_tpu_torch.deposit import nn_index_sweep, nn_window; "
+            "from vpower_tpu_torch.deposit import nn_index_sweep, nn_window, "
+            "sph; "
+            "from vpower_tpu_torch.io import bricks, checkpoint, native, "
+            "snapshot; "
+            "from vpower_tpu_torch.utils import checks; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'")
+            "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'; "
+            "assert 'h5py' not in sys.modules, 'h5py imported'")
     env = {**os.environ, "PYTHONPATH": REPO}
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -139,12 +146,26 @@ def _construct(name, **kw):
         return BoxField.from_numpy(np.zeros((3, 4, 4, 4), np.float32),
                                    np.ones((4, 4, 4), np.float32), 0.25,
                                    **kw).velocity
+    if name == "window_compensation":
+        return tpower.window_compensation(4, 1, **kw)
+    if name == "bin_grid":
+        return tpower.bin_grid(4, 1.0, 2 * np.pi, 2 * np.pi, 2, **kw)
+    if name == "bin_grid_local":
+        return tpower.bin_grid_local((2, 4, 4), 4, 1.0, 2 * np.pi,
+                                     2 * np.pi, 2, (2, 0, 0), **kw)
+    if name == "hermitian_weights":
+        return tpower.hermitian_weights(4, **kw)
+    if name == "get_phase":
+        return tfold.get_phase((1, 0, 1), 8, 4, **kw)
     return tsyn.grid_positions(4, 1.0, **kw)
 
 
-@pytest.mark.parametrize("name", ["particles", "boxfield", "grid_positions"])
+@pytest.mark.parametrize("name", ["particles", "boxfield", "grid_positions",
+                                  "window_compensation", "bin_grid",
+                                  "bin_grid_local", "hermitian_weights",
+                                  "get_phase"])
 def test_constructors_default_to_the_card(name):
-    """With no device, the host-array constructors and the lattice ask
+    """With no device, the host-array constructors and the lattices ask
     for the card: on a torch without one they raise, never land on the
     CPU; a caller who names the CPU gets CPU tensors."""
     if torch.cuda.is_available():

@@ -577,3 +577,80 @@ def test_wrapper_raises_on_non_contiguous(cuda):
     state = torch.zeros(4, 8, 8, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         nn_sweep.sweep_tiles_vals(state, None, 1.0, has_occ=False)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_offsets_rolled_sph_footprint_matches_plain(cuda, n):
+    """K1 as SPH calls it: 125 launches over the offsets (-2..2)^3, each
+    onto the rolled carry; the card result equals the CPU run (the plain
+    version) bit for bit."""
+    rng = np.random.default_rng(40 + n)
+    n_p = 20 * n**2
+    sids = torch.from_numpy(np.sort(rng.integers(0, n**3, n_p))
+                            .astype(np.int32))
+    svals = torch.from_numpy(rng.standard_normal((n_p, 4))
+                             .astype(np.float32))
+    wts = torch.from_numpy(rng.random((125, n_p)).astype(np.float32))
+
+    def weight(d, dev):
+        return wts[(d[0] + 2) * 25 + (d[1] + 2) * 5 + d[2] + 2].to(dev)
+
+    ref = sorted_scatter.deposit_offsets_rolled(
+        sids, svals, lambda d: weight(d, "cpu"), range(-2, 3), n)
+    before = sorted_scatter.LAUNCHES
+    got = sorted_scatter.deposit_offsets_rolled(
+        sids.to(cuda), svals.to(cuda), lambda d: weight(d, cuda),
+        range(-2, 3), n)
+    torch.cuda.synchronize()
+    assert sorted_scatter.LAUNCHES == before + 125
+    assert torch.equal(got.cpu(), ref)
+
+
+def _sph_inputs(n_p, n_grid, seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n_p, 3), np.float32)
+    pos[:3] = [[0.0, 0.5, 1.0], [1.0 - 1e-7, 0.25, 0.75], [0.5, 0.5, 0.5]]
+    vals = rng.standard_normal((n_p, 4)).astype(np.float32)
+    h = (rng.lognormal(0.4, 0.6, n_p) / n_grid).astype(np.float32)
+    h[:2] = [1e-9, 9.0 / n_grid]  # degenerate and clamped
+    return torch.from_numpy(pos), torch.from_numpy(vals), torch.from_numpy(h)
+
+
+@pytest.mark.parametrize("periodic,kernel", [(True, "cubic_spline"),
+                                             (False, "sphere")])
+def test_sph_deposit_on_card_matches_cpu(cuda, periodic, kernel):
+    """sph_deposit at 32^3, s_max = 2, given h: the card run (sort,
+    weights, 125 K1 launches, rolls) equals the CPU run bit for bit."""
+    pos, vals, h = _sph_inputs(40_000, 32, 41)
+    from vpower_tpu_torch.deposit import sph
+
+    kw = dict(s_max=2, kernel=kernel, periodic=periodic)
+    ref = sph.sph_deposit(pos, vals, h, 32, 1.0, **kw)
+    before = sorted_scatter.LAUNCHES
+    got = sph.sph_deposit(pos.to(cuda), vals.to(cuda), h.to(cuda), 32, 1.0,
+                          **kw)
+    torch.cuda.synchronize()
+    assert sorted_scatter.LAUNCHES == before + 125
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_sph_multires_on_card_conserves_mass(cuda):
+    """sph_interp_to_field(clamp_support=False) on the card: several
+    levels, mass conserved to 1e-6, velocities finite."""
+    from vpower_tpu_torch.deposit import sph
+
+    rng = np.random.default_rng(42)
+    n_p = 30_000
+    p = Particles.from_numpy(
+        rng.random((n_p, 3), np.float32),
+        (rng.random(n_p) + 0.5).astype(np.float32),
+        (rng.lognormal(8.0, 1.5, n_p)).astype(np.float32),
+        rng.standard_normal((n_p, 3)).astype(np.float32), 1.0, device=cuda)
+    before = sorted_scatter.LAUNCHES
+    f = sph.sph_interp_to_field(p, 32, clamp_support=False)
+    torch.cuda.synchronize()
+    launches = sorted_scatter.LAUNCHES - before
+    assert launches % 125 == 0 and launches >= 250
+    m = p.mass.double().sum().item()
+    assert abs(f.mass.double().sum().item() - m) <= 1e-6 * m
+    assert bool(torch.isfinite(f.velocity).all())

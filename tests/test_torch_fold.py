@@ -75,7 +75,8 @@ def _field(n, seed, dtype=np.float32, box=1.0):
                                          (torch.complex128, 1e-12)])
 def test_get_phase_and_fold_field_match_jax(cdtype, rtol):
     jd = {torch.complex64: jnp.complex64, torch.complex128: jnp.complex128}
-    got = tfold.get_phase((1, 2, 3), 16, 8, offset=(4, 0, 8), dtype=cdtype)
+    got = tfold.get_phase((1, 2, 3), 16, 8, offset=(4, 0, 8), dtype=cdtype,
+                          device="cpu")
     ref = jfold.get_phase((1, 2, 3), 16, 8, offset=(4, 0, 8),
                           dtype=jd[cdtype])
     assert got.dtype == cdtype
@@ -86,7 +87,7 @@ def test_get_phase_and_fold_field_match_jax(cdtype, rtol):
     for m in (1, 2, 3):
         _close(tfold.fold_field(torch.from_numpy(f), m),
                jfold.fold_field(jnp.asarray(f), m), rtol)
-    ph = tfold.get_phase((1, 0, 1), 12, 12, dtype=cdtype)
+    ph = tfold.get_phase((1, 0, 1), 12, 12, dtype=cdtype, device="cpu")
     phj = jfold.get_phase((1, 0, 1), 12, 12, dtype=jd[cdtype])
     for x in (f, f[0]):
         _close(tfold.apply_phase(torch.from_numpy(x), ph),

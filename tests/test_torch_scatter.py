@@ -148,15 +148,24 @@ def test_ngp_spectrum_matches_jax():
 
 
 def test_unported_options_raise():
-    """SPH is not ported yet: it raises and names its ROADMAP item.
-    Interlacing and the momentum / energy quantities answer as the JAX
-    package does (Nsample equal, Psum rtol 1e-6); CIC (the default
-    method) and exact NN answer."""
+    """The options once unported answer as the JAX package does: SPH's
+    field (mass and momentum atol 1e-6 of their max, float32 sums in
+    another order) and spectrum, interlacing and the momentum / energy
+    quantities (Nsample equal, Psum rtol 1e-6); CIC (the default method)
+    and exact NN answer; an unknown method raises."""
     p, pj = _particles(100, 22)
-    with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
-        tpipe.deposit(p, 8, method="sph")
-    with pytest.raises(NotImplementedError, match="slice 5 .ROADMAP item 8"):
-        tpipe.power_spectrum(p, 8, method="sph")
+    f, fj = tpipe.deposit(p, 8, method="sph"), jpipe.deposit(pj, 8,
+                                                             method="sph")
+    for got, ref in ((f.mass, fj.mass), (f.momentum(), fj.momentum())):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-6 * float(np.abs(ref).max()))
+    s = tpipe.power_spectrum(p, 8, method="sph")
+    sj = jpipe.power_spectrum(pj, 8, method="sph")
+    np.testing.assert_array_equal(s.Nsample, sj.Nsample)
+    np.testing.assert_allclose(s.Psum, sj.Psum, rtol=1e-6)
+    with pytest.raises(ValueError, match="Unknown deposition method"):
+        tpipe.deposit(p, 8, method="tsc")
     for kw in (dict(interlace=True), dict(quantity="momentum"),
                dict(quantity="energy")):
         s = tpipe.power_spectrum(p, 8, method="ngp", **kw)

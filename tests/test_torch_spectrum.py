@@ -238,7 +238,7 @@ def test_bin_grid_local_bitwise_and_shell_bin_local(n_full, shape, starts,
     else:
         ks_j = ks_t = kshift
     got = tpower.bin_grid_local(shape, n_full, box, kmin, spacing, n_bins,
-                                starts, ks_t)
+                                starts, ks_t, device="cpu")
     ref = jpower.bin_grid_local(shape, n_full, box, kmin, spacing, n_bins,
                                 jnp.asarray(starts), ks_j)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

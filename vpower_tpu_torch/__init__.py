@@ -9,8 +9,12 @@ window sweep) launch, built with ``nvcc`` at first use; on a CPU tensor
 their plain PyTorch versions run.  Folded spectra (``folded_spectrum``,
 ``fused_fold_full_spectrum``, ...) reach a dynamic range ``m * n``
 with (n)^3 grids; the fused ones deposit each beta's phased channels
-with the same sorted-deposit kernel.  Importing
-the package needs neither a card nor ``nvcc``, and never imports JAX.
+with the same sorted-deposit kernel, as SPH (``method="sph"``) deposits
+each of its footprint's offsets.  Snapshots (HDF5, through ``h5py``,
+imported only when one is read or written), ``.npz`` checkpoints and
+the out-of-core ``BrickStore`` load onto the card unless the caller
+names another device.  Importing the package needs neither a card nor
+``nvcc`` nor ``h5py``, and never imports JAX.
 
 Quickstart (the unfolded velocity spectrum of the JAX quickstart)::
 
@@ -25,6 +29,8 @@ Quickstart (the unfolded velocity spectrum of the JAX quickstart)::
 
 from .core.particles import Particles
 from .core.field import BoxField, FoldedField
+from .io.bricks import BrickStore
+from .io.snapshot import init_dir, load_snapshot, save_snapshot
 from .io.synthetic import (
     gaussian_random_field,
     grid_positions,
@@ -61,11 +67,15 @@ from .spectrum.spectrum import (
     random_beta_sequence,
     relative_diff,
 )
+from .utils.checks import check_conservation
 
 __all__ = [
     "Particles",
     "BoxField",
     "FoldedField",
+    "load_snapshot",
+    "save_snapshot",
+    "init_dir",
     "gaussian_random_field",
     "grid_positions",
     "particles_from_field",
@@ -87,6 +97,7 @@ __all__ = [
     "fused_fold_full_spectrum",
     "cross_spectrum",
     "spectrum_from_folded",
+    "BrickStore",
     "real_power_binned",
     "shell_bin",
     "shell_bin_rfft",
@@ -97,4 +108,5 @@ __all__ = [
     "beta_half_space",
     "init_beta_space",
     "random_beta_sequence",
+    "check_conservation",
 ]

@@ -1,3 +1,6 @@
+from .bricks import BrickStore
+from .checkpoint import save_field, load_field, save_folded, load_folded
+from .snapshot import load_snapshot, save_snapshot, init_dir
 from .synthetic import (
     gaussian_random_field,
     grid_positions,
@@ -6,6 +9,8 @@ from .synthetic import (
 )
 
 __all__ = [
+    "BrickStore", "save_field", "load_field", "save_folded", "load_folded",
+    "load_snapshot", "save_snapshot", "init_dir",
     "gaussian_random_field", "grid_positions",
     "particles_from_field", "synthetic_particles",
 ]

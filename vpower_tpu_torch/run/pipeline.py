@@ -1,7 +1,7 @@
 """End-to-end pipelines: particles -> grid -> P(k), one device.
 
 PyTorch counterpart of :mod:`vpower_tpu.run.pipeline`: the unfolded NN,
-NGP and CIC spectra (interlaced or not), cross-spectra, and folded
+NGP, CIC and SPH spectra (interlaced or not), cross-spectra, and folded
 spectra, from a gridded field or fused into the deposit.  Scatter
 methods deposit ``[m*v, m]`` and derive ``v = p / m``; the gather
 method (``nn``) assigns each cell the velocity of its nearest particle.
@@ -59,8 +59,9 @@ def _deposit_scatter(particles: Particles, n_grid: int, method: str) -> BoxField
 def deposit(particles: Particles, n_grid: int, method: str = "cic",
             **kwargs) -> BoxField:
     """Deposit/interpolate particles onto an (n_grid)^3 field:
-    ``ngp`` or ``cic`` (scatter) or ``nn`` (nearest-neighbour gather,
-    keywords ``periodic`` and ``exact``)."""
+    ``ngp`` or ``cic`` (scatter), ``nn`` (nearest-neighbour gather,
+    keywords ``periodic`` and ``exact``) or ``sph`` (adaptive-kernel
+    scatter, the keywords of :func:`~..deposit.sph.sph_interp_to_field`)."""
     if method in ("ngp", "cic"):
         return _deposit_scatter(particles, n_grid, method)
     if method == "nn":
@@ -68,9 +69,9 @@ def deposit(particles: Particles, n_grid: int, method: str = "cic",
 
         return nn_interp_to_field(particles, n_grid, **kwargs)
     if method == "sph":
-        raise NotImplementedError(
-            "deposition method 'sph' is ported in slice 5 (ROADMAP item 8)"
-        )
+        from ..deposit.sph import sph_interp_to_field
+
+        return sph_interp_to_field(particles, n_grid, **kwargs)
     raise ValueError(f"Unknown deposition method {method!r}")
 
 

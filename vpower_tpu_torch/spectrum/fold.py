@@ -58,7 +58,7 @@ def get_phase(
     n_local: int,
     offset: Sequence[int] = (0, 0, 0),
     dtype=torch.complex64,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """(n, n, n) complex phase lattice
     ``exp(-i 2 pi / Ntot (bx (x0 + ix) + by (y0 + iy) + bz (z0 + iz)))``

@@ -171,7 +171,7 @@ def _wrapped_index(n_grid: int, device) -> torch.Tensor:
 
 
 def window_compensation(n_grid: int, order: int, dtype=torch.float32,
-                        rfft: bool = False, device=None) -> torch.Tensor:
+                        rfft: bool = False, device="cuda") -> torch.Tensor:
     """(N, N, N) multiplicative correction ``1 / W(k)^2`` for the
     deposition window ``W(k) = prod_i sinc(pi n_i / N)^order`` (1 = NGP,
     2 = CIC); ``rfft=True`` gives the (N, N, N//2 + 1) half space."""
@@ -257,7 +257,7 @@ def bin_grid(
     n_bins: int,
     kshift: Sequence[float] = (0.0, 0.0, 0.0),
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """(N, N, N) int32 lattice of shell-bin indices; ``n_bins`` = dropped.
     ``|k|`` uses the folded-spectrum shift ``k_eff = k_grid + kshift``."""
@@ -276,7 +276,7 @@ def bin_grid_local(
     starts: Sequence[int],
     kshift=(0.0, 0.0, 0.0),
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Shell-bin indices of the block ``starts + [0, local_shape)`` of
     the full (n_full)^3 lattice, so blocks bin onto one global bin set.
@@ -323,7 +323,7 @@ def _cascade_bin(power: torch.Tensor, bins: torch.Tensor, n_bins: int,
 
 
 def hermitian_weights(n_grid: int, dtype=torch.float32,
-                      device=None) -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """(N//2 + 1,) multiplicity of each rfft kz plane in the full grid:
     2 for planes whose conjugate was dropped, 1 for kz = 0 and (even N)
     kz = N/2."""
