@@ -7,10 +7,12 @@ Drives the port's paths through the entry points a user calls
 (``power_spectrum``, ``deposit``, ``spectrum_from_field``,
 ``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``,
 ``fused_fold_full_spectrum``, ``sph_interp_to_field``,
-``check_conservation``, ``save_field``, ``BrickStore``) on 10,077,696
+``check_conservation``, ``save_field``, ``BrickStore``,
+``streamed_folded_sweep``, ``streamed_folded_spectrum``) on 10,077,696
 particles and a 512^3 grid: the fast NN, NGP and CIC (the default
 method) velocity spectra, the exact NN spectrum (window sweep), the
-index path, the folded spectrum and the SPH spectrum.  The particles
+index path, the folded spectrum, the SPH spectrum, and the
+block-streamed folded NN velocity spectrum at range 2048.  The particles
 are made on the card from a seeded ``torch.Generator`` with the shapes
 of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
 velocity field sampled by a 216^3 lattice jittered by 3 cells.
@@ -89,11 +91,36 @@ is non-zero):
    ``BrickStore`` (nbrick 2, n_brick 64, npz) of its bricks written and
    read back on the card, bitwise; the store's streaming fold against
    ``fold_box_field`` within 1e-5.
+13. streamed: (a) ``streamed_folded_sweep(particles, 256, 8,
+   method="nn")``, range 2048, 512 blocks of 256^3 through certified
+   320^3 open-box descents, 8 betas of ``random_beta_sequence(8,
+   seed=1)`` in one batch, no cache, timed once: wall, stage times, the
+   time a block, peak memory, launches; no uncertified cell; each
+   beta's Nsample equal to the host's float32 count of its shifted
+   lattice (the float64 count's differences printed); the device's
+   idle share over 16 blocks by ``torch.profiler``.  (b) one block of
+   (a) on the card and on the CPU from the same rows, bitwise (the host
+   run overlaps (c)-(e)); its K1 and K2 calls against their plain
+   versions, timed beside their bounds; 2^16 of its cells against a
+   kd-tree over its candidates (misassignment <= MISS_MAX) and a
+   periodic kd-tree over all particles (the true NN is a candidate).
+   (c) the folding identity through exact streamed NN:
+   ``streamed_folded_spectrum(particles, 256, 2, exact=True)`` (8 blocks
+   of 320^3 on the window sweep) against the exact 512^3 spectrum of
+   phase 7, Nsample equal and Psum within 1e-4, the fast one within
+   5e-3; one exact block's K2 and K4 calls against their plain versions.
+   (d) CIC momentum at range 512 against ``fused_fold_spectrum`` beta by
+   beta (Psum within 1e-5); SPH velocity at range 128 on 157,464
+   particles, block values bitwise equal to the CPU run.  (e) the same
+   particles with a spherical void: blocks escalate, none left
+   uncertified, Psum within 1e-6 of the CPU run; again through a disk
+   cache with two beta batches, within 1e-6.
 
 The kernel summary is one JSON line: per kernel its launches on the main
-path's run (K1: the NN path's, the fold's and the SPH spectrum's, by
-path under ``launches_by_path``, its fold and SPH calls under ``fold``
-and ``sph``), its largest error
+path's run (K1: the NN path's, the fold's, the SPH spectrum's and the
+streamed runs', by path under ``launches_by_path``, its fold, SPH and
+streamed calls under ``fold``, ``sph`` and ``streamed``; K2 and K4:
+also their streamed launches and calls), its largest error
 against the plain version, its time, the plain version's, the library
 call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
@@ -153,6 +180,18 @@ N_SMALL = 128            # K4's full plain comparison: 128^3 with
 N_SMALL_LATTICE = 54     # 54^3 = 157,464 particles (same occupancy)
 N_RING = 160             # the n % 64 != 0 route, one particle per cell
 RING_MISS_MAX = 1e-5
+STREAM_N = 256           # the streamed sweep: 256^3 folded grids,
+STREAM_M = 8             # m = 8: range 2048, 512 blocks
+STREAM_BETAS = 8         # random_beta_sequence(8, seed=1)[:8], one batch
+STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
+STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
+STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
+STREAM_SMALL_N = 64      # SPH and certificate runs: range 128, m = 2,
+VOID_RADIUS = 0.1        # 157,464 particles; a spherical void (box units)
+STREAM_CPU_RTOL = 1e-6   # card sweep against the CPU sweep, combined Psum
+# A candidate's block-frame coordinates are float32 roundings of (x +
+# margin - q L / m): ~3e-5 cell at range 2048, far below this gap
+STREAM_GAP_MAX = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 # FP32 operations to score one candidate: 3 sub, 3 mul, 2 add, 1 compare
@@ -399,17 +438,40 @@ def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
                             workers=os.cpu_count()).ravel()
         power += (0.5 * a * a) * (fk.real**2 + fk.imag**2)
     del flat, cos_w, sin_w, mom_c, z, fk
-    t = np.fft.fftfreq(n_grid, 1.0 / n_grid)
-    kx, ky, kz = ((m * t + b) ** 2 for b in beta)
-    k_int = np.sqrt(kx[:, None, None] + ky[None, :, None]
-                    + kz[None, None, :]).ravel()
+    idx, keep, nsamp = _host_fold_nsamp(n_grid, m, beta, box_size)
+    psum = np.bincount(idx[keep], weights=power[keep],
+                       minlength=len(nsamp))
+    return psum, nsamp
+
+
+def _host_fold_nsamp(n_grid, m, beta, box_size, f32=False):
+    """Mode counts of one beta's shifted lattice |K| = |m t + beta| (|k|
+    = 2 pi |K| / L), bin i holding (i + 1/2) <= |K| < (i + 3/2), on the
+    JAX package's bins (kmin = 2 pi / L to the full-resolution Nyquist
+    mode, ``int((kmax - kmin) / kmin) + 1`` of them).  ``f32`` counts
+    with the float32 operations of ``bin_grid_local`` (per-axis k, the
+    squares summed x, y then z, the root, ``floor((k - (kmin - s / 2)) /
+    s)``); otherwise in float64 from the integer |K|^2."""
+    n_total = m * n_grid
+    cell = box_size / n_total
     kmin = 2 * np.pi / box_size
     n_bins = int((np.pi / cell - kmin) / kmin) + 1
-    idx = np.floor(k_int - 0.5).astype(np.int64)
+    t = np.fft.fftfreq(n_grid, 1.0 / n_grid)
+    if f32:
+        f = np.float32
+        step = f(2.0 * np.pi / (n_grid * (box_size / m / n_grid)))
+        shift = [f(b) * f(2.0 * np.pi) / f(box_size) for b in beta]
+        kx, ky, kz = ((step * t.astype(f) + shift[a]) ** 2 for a in range(3))
+        k = np.sqrt((kx[:, None, None] + ky[None, :, None])
+                    + kz[None, None, :]).ravel()
+        idx = np.floor((k - f(kmin - kmin / 2.0)) / f(kmin)).astype(np.int64)
+    else:
+        kx, ky, kz = ((m * t + b) ** 2 for b in beta)
+        k_int = np.sqrt(kx[:, None, None] + ky[None, :, None]
+                        + kz[None, None, :]).ravel()
+        idx = np.floor(k_int - 0.5).astype(np.int64)
     keep = (idx >= 0) & (idx < n_bins)
-    nsamp = np.bincount(idx[keep], minlength=n_bins)
-    psum = np.bincount(idx[keep], weights=power[keep], minlength=n_bins)
-    return psum, nsamp
+    return idx, keep, np.bincount(idx[keep], minlength=n_bins)
 
 
 def _host_nn_query(tree, n_grid, box_size, slab=32):
@@ -892,6 +954,581 @@ def _io_phase(torch, vt, field):
         _check(fold_err <= 1e-5, f"streaming fold err {fold_err:.3e}")
 
 
+class _Stop(Exception):
+    """Ends a sweep from its progress callback (the idle-share run)."""
+
+
+def _idle_share(torch, run, chunk, blocks=STREAM_IDLE_BLOCKS):
+    """The device's idle share over ``blocks`` blocks of a streamed sweep
+    of ``chunk`` blocks a chunk, after its first chunk: ``run(progress)``
+    is stopped once they are done; ``torch.profiler`` (CUDA activity
+    only) records the kernels between a synchronize after the first
+    chunk and one after the last, and the share is 1 - (union of kernel
+    intervals) / (host wall of that window).  Returns ``(share or None,
+    wall s, kernels)``."""
+    start, stop = 1, 1 + blocks // chunk
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks = {}
+
+    def progress(bi, nb, q, n_blocks):
+        done = (q + 1) // chunk
+        if done == start and "t0" not in marks:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif done == stop:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+            raise _Stop
+
+    try:
+        run(progress)
+    except _Stop:
+        pass
+    wall = marks["t1"] - marks["t0"]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    if not spans:
+        return None, wall, 0
+    return 1.0 - busy * 1e-6 / wall, wall, len(spans)
+
+
+def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
+    """[streamed]: the block-streamed folded sweep (module docstring,
+    phase 13).  Returns the per-kernel records of the streamed path:
+    launches of its main run (a) and of the exact run (c), and the
+    calls held to their plain versions."""
+    import tempfile
+
+    from scipy.spatial import cKDTree
+
+    from vpower_tpu_torch.deposit import nn as nn_mod
+    from vpower_tpu_torch.run import streamed as rs
+
+    sorted_scatter, nn_sweep, nn_window, nn_index_sweep = kernel_modules
+    dev = particles.pos.device
+    box = particles.box_size
+    n_p = len(particles)
+    n_total = STREAM_N * STREAM_M
+    cell_total = box / n_total
+    rec = {"sorted_scatter": [], "nn_sweep": [], "window_sweep": [],
+           "err": {"sorted_scatter": 0.0, "nn_sweep": 0.0,
+                   "window_sweep": 0.0}}
+
+    def zero_counts():
+        for mod in kernel_modules:
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        return {"sorted_scatter": sorted_scatter.LAUNCHES,
+                "nn_sweep": nn_sweep.LAUNCHES,
+                "window_sweep": nn_window.LAUNCHES,
+                "nn_index_sweep": nn_index_sweep.LAUNCHES}
+
+    # ---- (a) the canonical run: range 2048, 512 blocks, 8 betas ------
+    betas = vt.random_beta_sequence(STREAM_M, seed=1)[:STREAM_BETAS]
+    ticks = []
+
+    def progress(bi, n_batches, q, n_blocks):
+        ticks.append((time.perf_counter(), q))
+
+    st = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    zero_counts()
+    with _Capture(rs, "_block_candidates_device", keep=True) as cand_cap:
+        t0 = time.perf_counter()
+        sweep = vt.streamed_folded_sweep(
+            particles, STREAM_N, STREAM_M, quantity="velocity", method="nn",
+            beta_sequence=betas, beta_batch=STREAM_BETAS, cache=False,
+            stage_times=st, progress=progress)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches_a = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_blocks = STREAM_M**3
+    steps = np.diff([t for t, _ in ticks])
+    chunk = ticks[0][1] + 1
+    per_block = float(np.median(steps)) / chunk
+    print(f"[streamed] (a) streamed_folded_sweep(particles, {STREAM_N}, "
+          f"{STREAM_M}, method='nn', {STREAM_BETAS} betas of "
+          f"random_beta_sequence({STREAM_M}, seed=1), beta_batch="
+          f"{STREAM_BETAS}, cache=False): range {n_total}, {n_blocks} "
+          f"blocks, wall {wall:.3f} s on {smi}; stage_times {st}; "
+          f"{len(ticks)} chunks of {chunk} blocks, median "
+          f"{per_block:.4f} s a block (chunk steps min {steps.min():.3f}, "
+          f"max {steps.max():.3f} s); peak memory {peak:.2f} GiB ({held:.2f} "
+          f"GiB held before the run); launches K1 "
+          f"{launches_a['sorted_scatter']}, K2 "
+          f"{launches_a['nn_sweep']}, K4 {launches_a['window_sweep']}, K3 "
+          f"{launches_a['nn_index_sweep']}", flush=True)
+    _check(len(ticks) * chunk == n_blocks, "the sweep did not report "
+           "every block")
+    _check(st["uncertified_cells"] == 0, f"{st['uncertified_cells']} "
+           f"cells uncertified")
+    _check(launches_a["sorted_scatter"] >= n_blocks,
+           "fewer K1 launches than blocks")
+    _check(launches_a["nn_sweep"] >= 2 * n_blocks,
+           "fewer than two K2 launches a block")
+    _check(len(sweep) == STREAM_BETAS, f"{len(sweep)} sub-spectra")
+    n_diff64 = 0
+    n_bins_a = 0
+    for s in sweep:
+        n_bins_a = len(s)
+        _check(np.isfinite(s.Psum).all() and np.isfinite(s.P).all(),
+               f"beta {s.beta}: Psum not finite")
+        _, _, ns32 = _host_fold_nsamp(STREAM_N, STREAM_M, s.beta, box,
+                                      f32=True)
+        _, _, ns64 = _host_fold_nsamp(STREAM_N, STREAM_M, s.beta, box)
+        _check(np.array_equal(s.Nsample, ns32.astype(np.float64)),
+               f"beta {s.beta}: Nsample differs from the host count")
+        n_diff64 += int(np.abs(s.Nsample - ns64).sum())
+    print(f"[streamed] (a) {len(sweep)} betas, {n_bins_a} bins: "
+          f"Nsample bit-exact against the host's float32 count of each "
+          f"shifted lattice; the float64 count of |m t + beta| differs in "
+          f"{n_diff64} mode assignments over the {len(sweep)} betas (modes "
+          f"within float32 rounding of a shell edge); Psum finite; "
+          f"certificate: suspect {st['suspect_cells']}, escalated "
+          f"{st['escalated_blocks']}, uncertified "
+          f"{st['uncertified_cells']}", flush=True)
+    rows, starts, counts_b, pad, ext_box, margin_phys = cand_cap.results[0]
+    del sweep, cand_cap
+    torch.cuda.empty_cache()
+
+    # the device's idle share over 16 blocks of (a)
+    share, win, n_k = _idle_share(torch, lambda progress: (
+        vt.streamed_folded_sweep(
+            particles, STREAM_N, STREAM_M, quantity="velocity",
+            method="nn", beta_sequence=betas, beta_batch=STREAM_BETAS,
+            cache=False, progress=progress)), chunk)
+    print(f"[streamed] device idle share over blocks {chunk}-"
+          f"{chunk + STREAM_IDLE_BLOCKS - 1} of (a), torch.profiler (CUDA "
+          f"activity): "
+          + (f"{share:.4f} ({n_k} kernels in a {win:.3f} s window, "
+             f"{win / STREAM_IDLE_BLOCKS:.4f} s a block with the profiler "
+             f"on)"
+             if share is not None else
+             f"not measured: the profiler saw no device kernel ({win:.3f} "
+             f"s window)"), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- (b) one block of (a): card against the host, bitwise --------
+    want = rs._default_margin_cells(STREAM_N, n_total, n_p)
+    n_ext, mc = rs._round_ext_capped(STREAM_N, want,
+                                     (n_total - STREAM_N) // 2)
+    q = 0
+    q3 = np.array(rs._block_q3(q, STREAM_M))
+    s0, cnt = int(starts[q]), int(counts_b[q])
+    cand = rows[s0:s0 + pad]
+    with _Capture(nn_mod, "sweep_tiles_vals") as k2_cap, \
+            _Capture(nn_mod, "deposit_sorted") as k1_cap:
+        vals_c, nsus_c = rs._block_values_at(
+            cand, cnt, STREAM_N, n_ext, mc, cell_total, "velocity", False,
+            True)
+        torch.cuda.synchronize()
+    vals_c, nsus_c = vals_c.cpu(), int(nsus_c)
+    cand_h = cand.cpu()
+    # where a block's time goes: its stages, synchronized around each
+    # call (K1 runs inside the seeds, K2 is sweep_tiles_vals, the torch
+    # sweeps of the levels below 160^3 are _sweep_vals)
+    names = ("_seed_grids_vals", "_pool_seeds_vals", "_coarsest_exact_vals",
+             "_sweep_vals", "sweep_tiles_vals", "_premerge_upsampled")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Stages(torch, [(nn_mod, n) for n in names]) as stg:
+        rs._block_values_at(cand, cnt, STREAM_N, n_ext, mc, cell_total,
+                            "velocity", False, True)
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stages = {}
+    for name, sec in stg.times:
+        stages[name] = stages.get(name, 0.0) + sec
+    print(f"[streamed] (b) block {q} stages (synchronized, {total:.4f} s "
+          f"in all): " + ", ".join(f"{n} {s:.4f} s" for n, s in
+                                   stages.items())
+          + f"; rest {total - sum(stages.values()):.4f} s", flush=True)
+
+    def host_block():
+        """The same block on the CPU (the plain route), in a thread that
+        overlaps the card's work of (c)-(e)."""
+        t = time.perf_counter()
+        out = rs._block_values_at(cand_h, cnt, STREAM_N, n_ext, mc,
+                                  cell_total, "velocity", False, True)
+        return out, time.perf_counter() - t
+
+    host = ThreadPoolExecutor(1)
+    host_run = host.submit(host_block)
+
+    # the block's K1 and K2 calls against their plain versions
+    for (sids, svals, n_cells), _ in k1_cap.calls:
+        out = sorted_scatter.deposit_sorted(sids, svals, n_cells)
+        ref = sorted_scatter.deposit_sorted_plain(sids.cpu(), svals.cpu(),
+                                                  n_cells)
+        n_sent = int((sids == n_cells).sum())
+        _check(torch.equal(out.cpu(), ref), "K1 seed grid of a streamed "
+               "block differs from its plain version")
+        ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+            sids, svals, n_cells), 5)
+        plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
+            sids, svals, n_cells), 5)
+        ids64, vals_t = sids.long(), svals.T
+        lib_ms = _time_ms(torch, lambda: torch.zeros(
+            (svals.shape[1], n_cells + 1), device=dev).index_add_(
+                1, ids64, vals_t), 5)
+        bound = _k1_bound(sids, svals, n_cells)
+        rec["sorted_scatter"].append({
+            "call": f"streamed seed grid, {svals.shape[0]} rows "
+                    f"({n_sent} sentinels) x {svals.shape[1]} -> "
+                    f"{n_ext}^3", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms})
+        print(f"[K1] streamed seed grid {tuple(svals.shape)} rows, {n_sent} "
+              f"of them sentinels (n_cells, dropped), -> ({svals.shape[1]}, "
+              f"{n_cells}): bitwise equal to the plain version on the "
+              f"host; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"zeros(C, n + 1).index_add_ {lib_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+        del out, ref
+    _k2_records(torch, k2_cap.calls, rec)
+    torch.cuda.empty_cache()
+
+    # the block's cells: the chosen candidate (positions ride as the
+    # payload) against a kd-tree over the block's candidate rows, in the
+    # block's frame, so that both see the same float32 values; and the
+    # nearest candidate against a periodic kd-tree over all particles
+    # (the certificate: the true NN is a candidate, to float32 rounding
+    # of the frame's coordinates)
+    t0 = time.perf_counter()
+    cand_p = cand.clone()
+    cand_p[:, 3:6] = cand[:, :3]
+    chosen = rs._block_values_at(cand_p, cnt, STREAM_N, n_ext, mc,
+                                 cell_total, "velocity", False, False)
+    rng = np.random.default_rng(SEED)
+    flat = rng.choice(STREAM_N**3, size=STREAM_SAMPLE, replace=False)
+    ch = chosen[:, torch.from_numpy(flat).to(dev)].double().cpu().numpy().T
+    del chosen, cand_p
+    ijk = np.stack(np.unravel_index(flat, (STREAM_N,) * 3), axis=1)
+    frame = (ijk + mc + 0.5) * cell_total
+    d_cand, _ = cKDTree(cand[:cnt, :3].double().cpu().numpy()).query(
+        frame, k=1, workers=-1)
+    excess = np.sqrt(((ch - frame) ** 2).sum(axis=1)) - d_cand
+    miss = excess > 1e-6 * cell_total
+    tree = cKDTree(particles.pos.double().cpu().numpy() % box, boxsize=box)
+    d_true, _ = tree.query((ijk + q3 * STREAM_N + 0.5) * cell_total, k=1,
+                           workers=-1)
+    del tree
+    gap = float(np.abs(d_cand - d_true).max()) / cell_total
+    print(f"[streamed] (b) block {q}: {STREAM_SAMPLE} cells; misassignment "
+          f"among the block's candidates (a kd-tree over its rows) "
+          f"{miss.mean():.3e} (gate {MISS_MAX}), max excess "
+          f"{excess.max() / cell_total:.3f} cell (gate sqrt(3)); the "
+          f"nearest candidate against a periodic kd-tree over all {n_p} "
+          f"particles: max |distance gap| {gap:.3e} cell (gate "
+          f"{STREAM_GAP_MAX}); {time.perf_counter() - t0:.1f} s", flush=True)
+    _check(miss.mean() <= MISS_MAX, f"streamed block misassignment "
+           f"{miss.mean():.3e}")
+    _check(excess.max() / cell_total < math.sqrt(3.0),
+           "streamed block miss beyond a cell diagonal")
+    _check(gap <= STREAM_GAP_MAX, f"a certified cell's true NN is not a "
+           f"candidate (gap {gap:.3e} cell)")
+    del rows, cand
+
+    # ---- (c) the folding identity through exact streamed NN ----------
+    st_c = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    spec_c = vt.streamed_folded_spectrum(
+        particles, STREAM_N, STREAM_ID_M, method="nn", exact=True,
+        stage_times=st_c)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = counts()
+    n = min(len(spec_c), len(spec_exact))
+    _check(np.array_equal(spec_c.Nsample[:n], spec_exact.Nsample[:n]),
+           "exact streamed Nsample differs from the exact spectrum's")
+
+    def rel_err(spec):
+        a, b = spec.Psum[:n], spec_exact.Psum[:n]
+        sel = b > 0
+        return float(np.max(np.abs(a[sel] - b[sel]) / b[sel]))
+
+    err_c = rel_err(spec_c)
+    print(f"[streamed] (c) streamed_folded_spectrum(particles, {STREAM_N}, "
+          f"{STREAM_ID_M}, method='nn', exact=True): range "
+          f"{STREAM_N * STREAM_ID_M}, {STREAM_ID_M**3} blocks, wall "
+          f"{wall_c:.2f} s; stage_times {st_c}; launches K1 "
+          f"{launches_c['sorted_scatter']}, K2 {launches_c['nn_sweep']}, "
+          f"K4 {launches_c['window_sweep']}; against the exact "
+          f"{STREAM_N * STREAM_ID_M}^3 spectrum: Nsample equal over {n} "
+          f"bins, Psum max rel err {err_c:.3e} (gate {FOLD_IDENTITY_RTOL})",
+          flush=True)
+    _check(st_c["uncertified_cells"] == 0, "exact streamed run left "
+           "uncertified cells")
+    _check(launches_c["window_sweep"] >= STREAM_ID_M**3,
+           "the exact streamed run launched K4 fewer times than blocks")
+    _check(err_c <= FOLD_IDENTITY_RTOL, f"exact streamed identity Psum rel "
+           f"err {err_c:.3e}")
+    t0 = time.perf_counter()
+    spec_f = vt.streamed_folded_spectrum(particles, STREAM_N, STREAM_ID_M,
+                                         method="nn")
+    torch.cuda.synchronize()
+    err_f = rel_err(spec_f)
+    print(f"[streamed] (c) the same with exact=False: "
+          f"{time.perf_counter() - t0:.2f} s, Psum max rel err against the "
+          f"exact spectrum {err_f:.3e} (gate {NN_RTOL})", flush=True)
+    _check(np.array_equal(spec_f.Nsample[:n], spec_exact.Nsample[:n]),
+           "fast streamed Nsample differs")
+    _check(err_f <= NN_RTOL, f"fast streamed Psum rel err {err_f:.3e}")
+    del spec_c, spec_f
+    # K2 and K4 (open box, padding rows masked) on one exact block of (c)
+    _exact_block_checks(torch, rs, nn_mod, nn_window, particles, rec)
+    torch.cuda.empty_cache()
+
+    # ---- (d) scatter blocks --------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    sweep_d = vt.streamed_folded_sweep(particles, STREAM_N, STREAM_ID_M,
+                                       quantity="momentum", method="cic",
+                                       beta_batch=8)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    k1_d = sorted_scatter.LAUNCHES
+    err_d = 0.0
+    for s in sweep_d:
+        ref = vt.fused_fold_spectrum(particles, STREAM_N, STREAM_ID_M, s.beta,
+                                     method="cic")
+        _check(np.array_equal(s.Nsample, ref.Nsample),
+               f"CIC streamed beta {s.beta}: Nsample differs from the fused "
+               f"fold's")
+        sel = ref.Psum > 0
+        err_d = max(err_d, float(np.max(np.abs(s.Psum[sel] - ref.Psum[sel])
+                                        / ref.Psum[sel])))
+    print(f"[streamed] (d) streamed_folded_sweep(particles, {STREAM_N}, "
+          f"{STREAM_ID_M}, quantity='momentum', method='cic'): "
+          f"{len(sweep_d)} betas in {wall_d:.2f} s, K1 {k1_d} launches (one "
+          f"a block, ~{8 * n_p} rows each, sentinels for the rows outside "
+          f"the block); against fused_fold_spectrum(method='cic') beta by "
+          f"beta: Nsample equal, Psum max rel err {err_d:.3e} (gate "
+          f"{FOLD_RTOL})", flush=True)
+    _check(k1_d == STREAM_ID_M**3, "CIC streamed run: not one K1 a block")
+    _check(err_d <= FOLD_RTOL, f"CIC streamed Psum rel err {err_d:.3e}")
+    del sweep_d
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pos_s = vt.grid_positions(N_SMALL_LATTICE, box, generator=gen,
+                              jitter=JITTER)
+    n_s = pos_s.shape[0]
+    small = vt.Particles(
+        pos=pos_s, vel=torch.randn((n_s, 3), generator=gen, device=dev),
+        mass=torch.full((n_s,), 1.0 / n_s, device=dev),
+        density=torch.ones(n_s, device=dev), box_size=box)
+    small_cpu = small.to("cpu")
+    n_tot_s = STREAM_SMALL_N * STREAM_ID_M
+    h = small.smoothing_length()
+    for qb in range(STREAM_ID_M**3):
+        q3b = rs._block_q3(qb, STREAM_ID_M)
+        a = rs._scatter_block_values(
+            small.pos, small.vel, small.mass, q3b, STREAM_SMALL_N, n_tot_s,
+            box, "sph", "velocity", h=h)
+        b = rs._scatter_block_values(
+            small_cpu.pos, small_cpu.vel, small_cpu.mass, q3b,
+            STREAM_SMALL_N, n_tot_s, box, "sph", "velocity", h=h.cpu())
+        _check(torch.equal(a.cpu(), b), f"SPH block {q3b}: card values "
+               f"differ from the CPU run")
+    zero_counts()
+    sph_c = vt.streamed_folded_spectrum(small, STREAM_SMALL_N, STREAM_ID_M,
+                                        method="sph")
+    k1_sph = sorted_scatter.LAUNCHES
+    sph_h = vt.streamed_folded_spectrum(small_cpu, STREAM_SMALL_N,
+                                        STREAM_ID_M, method="sph")
+    err_sph = float(np.max(np.abs(sph_c.Psum - sph_h.Psum)
+                           / np.maximum(sph_h.Psum, 1e-300)))
+    print(f"[streamed] (d) SPH velocity at range {n_tot_s} (m = "
+          f"{STREAM_ID_M}, n_grid {STREAM_SMALL_N}, s_max 1, 27 offsets), "
+          f"{n_s} particles: all {STREAM_ID_M**3} blocks' values bitwise "
+          f"equal to the CPU run given the same h; the combined spectrum "
+          f"(K1 {k1_sph} launches) against the CPU run's: Nsample equal, "
+          f"Psum max rel err {err_sph:.3e} (gate {STREAM_CPU_RTOL})",
+          flush=True)
+    _check(np.array_equal(sph_c.Nsample, sph_h.Nsample), "SPH streamed "
+           "Nsample differs from the CPU run")
+    _check(err_sph <= STREAM_CPU_RTOL, f"SPH streamed Psum rel err "
+           f"{err_sph:.3e}")
+
+    # ---- (e) the certificate path: a spherical void --------------------
+    keep = ((small.pos - 0.5 * box) ** 2).sum(dim=1) > VOID_RADIUS**2
+    void = small[keep]
+    void_cpu = void.to("cpu")
+    st_e, st_h = {}, {}
+    kw = dict(method="nn", beta_batch=8)
+    t0 = time.perf_counter()
+    sw_e = vt.streamed_folded_sweep(void, STREAM_SMALL_N, STREAM_ID_M,
+                                    stage_times=st_e, **kw)
+    wall_e = time.perf_counter() - t0
+    sw_h = vt.streamed_folded_sweep(void_cpu, STREAM_SMALL_N, STREAM_ID_M,
+                                    stage_times=st_h, **kw)
+    comb_e, comb_h = sw_e.combine_all(), sw_h.combine_all()
+    cert_keys = ("suspect_cells", "escalated_blocks", "uncertified_cells")
+    err_e = float(np.max(np.abs(comb_e.Psum - comb_h.Psum)
+                         / np.maximum(comb_h.Psum, 1e-300)))
+    with tempfile.TemporaryDirectory() as d:
+        sw_k = vt.streamed_folded_sweep(
+            void, STREAM_SMALL_N, STREAM_ID_M, method="nn", beta_batch=4,
+            cache_dir=os.path.join(d, "blocks"))
+        n_files = len([f for f in os.listdir(os.path.join(d, "blocks"))
+                       if f.startswith("block_")])
+    err_k = max(float(np.max(np.abs(a.Psum - b.Psum)
+                             / np.maximum(np.abs(b.Psum), 1e-300)))
+                for a, b in zip(sw_k, sw_e))
+    same_k = all(np.array_equal(a.Psum, b.Psum) for a, b in zip(sw_k, sw_e))
+    print(f"[streamed] (e) {len(void)} particles, a void of radius "
+          f"{VOID_RADIUS} at the centre, range {n_tot_s}: card "
+          f"{wall_e:.2f} s, stage_times {st_e}; the CPU run's certificate "
+          f"{ {k: st_h[k] for k in cert_keys} }; "
+          f"combined Psum against the CPU run max rel err {err_e:.3e} (gate "
+          f"{STREAM_CPU_RTOL}); with cache_dir and beta_batch 4 ({n_files} "
+          f"block files, the second batch read from disk): max rel diff "
+          f"{err_k:.3e} (gate {STREAM_CPU_RTOL}), "
+          f"{'bitwise equal' if same_k else 'not bitwise'}", flush=True)
+    _check(st_e["escalated_blocks"] >= 1, "the void escalated no block")
+    _check(st_e["uncertified_cells"] == 0, "the void left uncertified "
+           "cells")
+    _check(np.array_equal(comb_e.Nsample, comb_h.Nsample),
+           "void sweep Nsample differs from the CPU run")
+    _check(err_e <= STREAM_CPU_RTOL, f"void sweep Psum rel err {err_e:.3e}")
+    _check(n_files == STREAM_ID_M**3, f"{n_files} cached blocks")
+    _check(err_k <= STREAM_CPU_RTOL, f"cached sweep rel diff {err_k:.3e}")
+
+    # (b), the host's side: the card's block against the CPU run
+    (vals_h, nsus_h), host_s = host_run.result()
+    host.shutdown()
+    _check(torch.equal(vals_c, vals_h) and nsus_c == int(nsus_h),
+           f"block {q}: card values or suspect count differ from the CPU "
+           f"run on the same rows")
+    print(f"[streamed] (b) block {q} of (a): {cnt} candidate rows in a "
+          f"{pad}-row window, margin {mc} cells, n_ext {n_ext}: values "
+          f"({tuple(vals_c.shape)}) and suspect count ({nsus_c}) bitwise "
+          f"equal to the CPU run on the same rows (the plain route, "
+          f"{host_s:.1f} s on the host, overlapping (c)-(e)); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    rec["launches"] = {"a": launches_a, "c": launches_c}
+    return rec
+
+
+def _k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
+              payload_out=False, d2_out=False, iters=1):
+    """K2's plain version over ``iters`` passes (the wrapper's meaning)."""
+    from vpower_tpu_torch.deposit import nn_sweep
+
+    cur = state
+    for it in range(iters):
+        last = payload_out and it == iters - 1
+        cur = nn_sweep.sweep_vals_plain(cur, seeds, box_size, periodic,
+                                        has_occ, last, d2_out and last)
+    return cur
+
+
+def _k2_check(torch, args, kwargs, tag=""):
+    """One recorded K2 call against its plain version on the card,
+    bitwise (a failure ends the run); its times and bound, printed.
+    Returns ``(max |err|, ms, plain ms, bound, mode)``."""
+    from vpower_tpu_torch.deposit import nn_sweep
+
+    state, seeds = args[0], args[1]
+    out = nn_sweep.sweep_tiles_vals(*args, **kwargs)
+    plain = _k2_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    k = 0 if seeds is None else seeds.shape[0] // state.shape[0]
+    mode = f"n={state.shape[1]} C={state.shape[0]} k={k} {kwargs}"
+    _check(out.shape == plain.shape and torch.equal(out, plain),
+           f"K2 differs from its plain version at {tag}{mode}")
+    err = float((out - plain).abs().max())
+    del out, plain
+    ms = _time_ms(torch, lambda: nn_sweep.sweep_tiles_vals(*args, **kwargs),
+                  3)
+    plain_ms = _time_ms(torch, lambda: _k2_plain(*args, **kwargs), 1)
+    bound = _k2_bound(*args, **kwargs)
+    print(f"[K2] {tag}{mode}: bitwise equal to plain; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})",
+          flush=True)
+    return err, ms, plain_ms, bound, mode
+
+
+def _k2_records(torch, calls, rec):
+    """The streamed path's K2 calls checked by :func:`_k2_check`, added
+    to ``rec``."""
+    for args, kwargs in calls:
+        err, ms, plain_ms, bound, mode = _k2_check(torch, args, kwargs,
+                                                   "streamed block ")
+        rec["err"]["nn_sweep"] = max(rec["err"]["nn_sweep"], err)
+        rec["nn_sweep"].append({
+            "call": f"streamed {mode}", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
+
+
+def _exact_block_checks(torch, rs, nn_mod, nn_window, particles, rec):
+    """One exact block of (c) (320^3, open box, padding rows masked):
+    its K2 calls (the d2-only descent) and every K4 pass against their
+    plain versions on the card, whole, bitwise; times and bounds."""
+    n_total = STREAM_N * STREAM_ID_M
+    n_ext, mc = rs._round_ext_capped(
+        STREAM_N, rs._default_margin_cells(STREAM_N, n_total,
+                                           len(particles)),
+        (n_total - STREAM_N) // 2)
+    rows, starts, counts, pad, _, _ = rs._block_candidates_device(
+        particles, STREAM_ID_M, STREAM_N, mc)
+    q = STREAM_ID_M**3 - 1
+    s0 = int(starts[q])
+    with _Capture(nn_window, "window_pass", keep=True) as cap, \
+            _Capture(nn_mod, "sweep_tiles_vals") as k2_cap:
+        rs._block_values_at(rows[s0:s0 + pad], int(counts[q]), STREAM_N,
+                            n_ext, mc, particles.box_size / n_total,
+                            "velocity", True, True)
+    del rows
+    _k2_records(torch, k2_cap.calls, rec)
+    _check(len(cap.calls) >= 1, "the exact block made no K4 pass")
+    for i, ((s0_, s1_, rows_, state), kw) in enumerate(cap.calls):
+        out = cap.results[i]
+        plain, plain_ms = _timed(torch, lambda: nn_window.window_pass_plain(
+            s0_, s1_, rows_, state, **kw))
+        _check(torch.equal(out, plain), f"K4 exact block pass {i} differs "
+               f"from its plain version")
+        rec["err"]["window_sweep"] = max(rec["err"]["window_sweep"],
+                                         float((out - plain).abs().max()))
+        del plain
+        ms = _time_ms(torch, lambda: nn_window.window_pass(
+            s0_, s1_, rows_, state, **kw), 3)
+        least, pairs, live = _k4_bound(torch, s0_, s1_, rows_, state, **kw)
+        n_rows = int((s1_ - s0_).long().sum())
+        rec["window_sweep"].append({
+            "call": f"streamed exact block pass {i}, {kw}, {n_rows} span "
+                    f"rows", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": least[0], "bound_by": least[1], "library_ms": None})
+        print(f"[K4] streamed exact block {q} (count {int(counts[q])} in a "
+              f"{pad}-row window) pass {i} {kw}: whole pass bitwise equal "
+              f"to plain; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+              f"{n_rows} span rows, {pairs} pairs in the spans, {live} "
+              f"live; bound {least[0]:.3f} ms ({least[1]})", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1025,38 +1662,12 @@ def main():
     del out_k, out_k2, ref, absref, err, sids, svals, values
 
     # ---- 4. K2 against its plain version --------------------------
-    def k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
-                 payload_out=False, d2_out=False, iters=1):
-        cur = state
-        for it in range(iters):
-            last = payload_out and it == iters - 1
-            cur = nn_sweep.sweep_vals_plain(
-                cur, seeds, box_size, periodic, has_occ, last,
-                d2_out and last)
-        return cur
-
     k2 = {"err": 0.0, "ms": None, "plain_ms": None}
 
     def check_k2(calls):
         for args, kwargs in calls:
-            state, seeds = args[0], args[1]
-            out = nn_sweep.sweep_tiles_vals(*args, **kwargs)
-            plain = k2_plain(*args, **kwargs)
-            torch.cuda.synchronize()
-            same = out.shape == plain.shape and torch.equal(out, plain)
-            if out.shape == plain.shape:
-                k2["err"] = max(k2["err"], float((out - plain).abs().max()))
-            k = 0 if seeds is None else seeds.shape[0] // state.shape[0]
-            mode = f"n={state.shape[1]} C={state.shape[0]} k={k} {kwargs}"
-            _check(same, f"K2 differs from its plain version at {mode}")
-            ms = _time_ms(torch, lambda: nn_sweep.sweep_tiles_vals(
-                *args, **kwargs), 3)
-            plain_ms = _time_ms(torch, lambda: k2_plain(*args, **kwargs), 1)
-            bound = _k2_bound(*args, **kwargs)
-            print(f"[K2] {mode}: bitwise equal to plain; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
-                  f"({bound[1]})", flush=True)
-            del out, plain
+            err, ms, plain_ms, bound, _ = _k2_check(torch, args, kwargs)
+            k2["err"] = max(k2["err"], err)
             yield ms, plain_ms, bound
 
     for ms, plain_ms, bound in check_k2(k2_calls.calls):
@@ -1755,6 +2366,12 @@ def main():
     del field_small
     torch.cuda.empty_cache()
 
+    # ---- 13. the block-streamed folded sweep ------------------------
+    stream = _streamed_phase(
+        torch, vt, particles, smi, spec_x,
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    torch.cuda.empty_cache()
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     def entry(name, replaces, launches, err, rec, library=None):
         return {"name": name, "route": "cuda",
@@ -1764,25 +2381,42 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
                 "bound_by": rec["bound"][1], "library_ms": library}
 
+    sa, sc = stream["launches"]["a"], stream["launches"]["c"]
     k1_entry = entry(
         "sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
-        launches["sorted_scatter"] + f_launches + sph_rec["launches"],
-        max(k1_err, fold["err"], sph_rec["err"]),
+        launches["sorted_scatter"] + f_launches + sph_rec["launches"]
+        + sa["sorted_scatter"] + sc["sorted_scatter"],
+        max(k1_err, fold["err"], sph_rec["err"],
+            stream["err"]["sorted_scatter"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         library=k1_lib_ms)
     k1_entry["launches_by_path"] = {"nn": launches["sorted_scatter"],
                                     "fold": f_launches,
-                                    "sph": sph_rec["launches"]}
+                                    "sph": sph_rec["launches"],
+                                    "streamed": sa["sorted_scatter"],
+                                    "streamed_exact": sc["sorted_scatter"]}
     k1_entry["fold"] = fold["calls"]
     k1_entry["sph"] = [sph_rec["k1"]]
+    k1_entry["streamed"] = stream["sorted_scatter"]
+    k2_entry = entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
+                     launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"],
+                     max(k2["err"], stream["err"]["nn_sweep"]), k2)
+    k2_entry["launches_by_path"] = {"nn": launches["nn_sweep"],
+                                    "streamed": sa["nn_sweep"],
+                                    "streamed_exact": sc["nn_sweep"]}
+    k2_entry["streamed"] = stream["nn_sweep"]
+    k4_entry = entry("window_sweep", "vpower_tpu/deposit/nn_window.py:449",
+                     x_launches["window_sweep"] + sc["window_sweep"],
+                     max(k4["err"], stream["err"]["window_sweep"]), k4)
+    k4_entry["launches_by_path"] = {"exact": x_launches["window_sweep"],
+                                    "streamed_exact": sc["window_sweep"]}
+    k4_entry["streamed"] = stream["window_sweep"]
     kernels = [
         k1_entry,
-        entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
-              launches["nn_sweep"], k2["err"], k2),
+        k2_entry,
         entry("nn_index_sweep", "vpower_tpu/deposit/nn_pallas.py:494",
               i_launches["nn_index_sweep"], k3["err"], k3),
-        entry("window_sweep", "vpower_tpu/deposit/nn_window.py:449",
-              x_launches["window_sweep"], k4["err"], k4),
+        k4_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -128,6 +128,7 @@ def test_import_does_not_import_jax():
             "sph; "
             "from vpower_tpu_torch.io import bricks, checkpoint, native, "
             "snapshot; "
+            "from vpower_tpu_torch.run import streamed; "
             "from vpower_tpu_torch.utils import checks; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'; "

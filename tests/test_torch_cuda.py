@@ -654,3 +654,184 @@ def test_sph_multires_on_card_conserves_mass(cuda):
     m = p.mass.double().sum().item()
     assert abs(f.mass.double().sum().item() - m) <= 1e-6 * m
     assert bool(torch.isfinite(f.velocity).all())
+
+
+# ---------------------------------------------------------------------- #
+# the block-streamed folded sweep: sentinels, open-box shapes            #
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_sorted_scatter_kernel_drops_sentinels(cuda, with_carry):
+    """Rows with ids outside [0, n_cells) (negative ids, and the sentinel
+    n_cells that padding rows and rows outside a streamed block carry)
+    are dropped by the kernel and by the plain version alike: bitwise
+    equal, and equal to a deposit of the other rows alone."""
+    rng = np.random.default_rng(66)
+    n_cells = 40**3
+    ids = np.concatenate([rng.integers(0, n_cells, 50_000),
+                          np.full(20_000, n_cells), np.full(300, -3),
+                          rng.integers(n_cells, n_cells + 9, 700)])
+    sids = np.sort(ids).astype(np.int32)
+    svals = rng.standard_normal((sids.size, 7)).astype(np.float32)
+    carry = rng.standard_normal((7, n_cells)).astype(np.float32) \
+        if with_carry else None
+    s, v = torch.from_numpy(sids), torch.from_numpy(svals)
+    c = torch.from_numpy(carry) if with_carry else None
+    ref = sorted_scatter.deposit_sorted(s, v, n_cells, carry=c)
+    keep = (s >= 0) & (s < n_cells)
+    assert torch.equal(ref, sorted_scatter.deposit_sorted(
+        s[keep].contiguous(), v[keep].contiguous(), n_cells, carry=c))
+    got = sorted_scatter.deposit_sorted(
+        s.to(cuda), v.to(cuda), n_cells,
+        carry=c.to(cuda) if with_carry else None)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _open_box_block(cuda, n_ext, per_cell, seed, void=0.0):
+    """A streamed block's candidate window on the card: ``per_cell``
+    particles per cell of an open (n_ext)^3 frame of 1/4 box, a spherical
+    void of radius ``void`` (cells) at its centre, and as many padding
+    rows (zeros, ``valid`` False) as a fixed window adds."""
+    rng = np.random.default_rng(seed)
+    ext_box = 0.25
+    pos = rng.random((int(per_cell * n_ext**3), 3)) * ext_box
+    if void:
+        far = ((pos - ext_box / 2) ** 2).sum(1) > (void * ext_box / n_ext)**2
+        pos = pos[far]
+    n_real = pos.shape[0]
+    pos = np.concatenate([pos, np.zeros((n_real // 5, 3))]).astype(np.float32)
+    vals = rng.standard_normal((pos.shape[0], 3)).astype(np.float32)
+    valid = torch.arange(pos.shape[0]) < n_real
+    return (torch.from_numpy(pos).to(cuda), torch.from_numpy(vals).to(cuda),
+            valid.to(cuda), ext_box)
+
+
+def test_nn_sweep_kernel_open_box_streamed_shapes(cuda, monkeypatch):
+    """K2 on every call of a streamed block's descent (open box, padding
+    rows masked) at the extended size 320^3: seeded k = 2 at 160^3, then
+    state-only; at 320^3 the pre-merged state-only passes with payload
+    and d2 out.  Each against its plain version on the card, bitwise."""
+    pos, vals, valid, ext_box = _open_box_block(cuda, 320, 0.0012, 31)
+    calls = []
+    orig = tnn.sweep_tiles_vals
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(tnn, "sweep_tiles_vals", record)
+    tnn.nn_gather_grid(pos, vals, 320, ext_box, periodic=False, valid=valid,
+                       return_d2=True)
+    shapes = {(a[0].shape[1], a[1] is not None, kw.get("d2_out", False))
+              for a, kw in calls}
+    assert shapes == {(160, True, False), (160, False, False),
+                      (320, False, True)}
+    for (state, seeds, box), kw in calls:
+        assert kw["periodic"] is False
+        got = nn_sweep.sweep_tiles_vals(state, seeds, box, **kw)
+        cur = state
+        iters = kw.get("iters", 1)
+        for it in range(iters):
+            last = kw.get("payload_out", False) and it == iters - 1
+            cur = nn_sweep.sweep_vals_plain(
+                cur, seeds, box, False, kw.get("has_occ", True), last,
+                kw.get("d2_out", False) and last)
+        assert torch.equal(got, cur), (state.shape, kw)
+
+
+def test_window_sweep_kernel_open_box_streamed_shape(cuda, monkeypatch):
+    """K4 on every pass of an exact streamed block at 320^3 (open box,
+    padding rows masked out of every span): 0.075 particles per cell
+    with a void of radius 9 cells, so that tier 1 and tier 2 both run.
+    Each pass whole against its plain version on the card, bitwise."""
+    pos, vals, valid, ext_box = _open_box_block(cuda, 320, 0.075, 32,
+                                                void=9.0)
+    calls = []
+    orig = nn_window.window_pass
+
+    def record(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(nn_window, "window_pass", record)
+    pay, _, _ = nn_window.nn_window_gather(pos, vals, 320, ext_box,
+                                           periodic=False, valid=valid)
+    assert len(calls) >= 2  # tier 1 and tier 2 (pass C if the void asks)
+    for (s0, s1, rows, state), kw, out in calls:
+        assert kw["wrap"] is False
+        plain = nn_window.window_pass_plain(s0, s1, rows, state, **kw)
+        assert torch.equal(out, plain)
+    # padding rows (zeros) never enter a span
+    for (s0, s1, rows, _), _, _ in calls:
+        lens = (s1 - s0).long()
+        span = torch.repeat_interleave(s0.long(), lens) + torch.arange(
+            int(lens.sum()), device=cuda) - torch.repeat_interleave(
+                torch.cumsum(lens, 0) - lens, lens)
+        at_zero = (rows[0][span] == 0) & (rows[1][span] == 0) \
+            & (rows[2][span] == 0)
+        assert not bool(at_zero.any())
+    assert torch.isfinite(pay).all()
+
+
+@pytest.mark.parametrize("exact,n_grid,margin", [(False, 32, 8),
+                                                 (True, 32, 16),
+                                                 (True, 16, 4)])
+def test_streamed_block_on_card_matches_cpu(cuda, exact, n_grid, margin):
+    """One streamed NN block (fast; exact on the window route at n_ext
+    64; exact on the ring-refined index route at n_ext 24) and the whole
+    sweep, card against the CPU run of the same code: the block's values
+    and suspect count bitwise, the sweep's Nsample equal and Psum within
+    1e-6."""
+    from vpower_tpu_torch.run import streamed as rs
+
+    rng = np.random.default_rng(n_grid + margin)
+    n_p = 3000
+    arrs = dict(pos=rng.random((n_p, 3)).astype(np.float32),
+                mass=np.full(n_p, 1.0 / n_p, np.float32),
+                density=(rng.random(n_p) + 0.5).astype(np.float32),
+                vel=rng.standard_normal((n_p, 3)).astype(np.float32))
+    p_cpu = Particles.from_numpy(box_size=1.0, device="cpu", **arrs)
+    p_gpu = Particles.from_numpy(box_size=1.0, device=cuda, **arrs)
+    rows, starts, counts, pad, _, _ = rs._block_candidates_device(
+        p_gpu, 2, n_grid, margin)
+    n_ext = n_grid + 2 * margin
+    for q in (0, 7):
+        cand = rows[int(starts[q]):int(starts[q]) + pad]
+        args = (int(counts[q]), n_grid, n_ext, margin, 1.0 / (2 * n_grid),
+                "velocity", exact, True)
+        got = rs._block_values_at(cand, *args)
+        ref = rs._block_values_at(cand.cpu(), *args)
+        assert torch.equal(got[0].cpu(), ref[0])
+        assert int(got[1]) == int(ref[1])
+    kw = dict(method="nn", exact=exact, margin_cells=margin, beta_batch=8)
+    sg = rs.streamed_folded_sweep(p_gpu, n_grid, 2, **kw)
+    sc = rs.streamed_folded_sweep(p_cpu, n_grid, 2, **kw)
+    for a, b in zip(sg, sc):
+        assert a.beta == b.beta
+        np.testing.assert_array_equal(a.Nsample, b.Nsample)
+        np.testing.assert_allclose(a.Psum, b.Psum, rtol=1e-6)
+
+
+def test_streamed_scatter_blocks_on_card_match_cpu(cuda):
+    """NGP, CIC and SPH streamed blocks (one stable sort, one K1 launch,
+    sentinels for the targets outside the block) on the card equal the
+    CPU run bitwise, given the same smoothing lengths."""
+    from vpower_tpu_torch.run import streamed as rs
+
+    rng = np.random.default_rng(5)
+    n_p = 4000
+    pos = torch.from_numpy(rng.random((n_p, 3)).astype(np.float32))
+    vel = torch.from_numpy(rng.standard_normal((n_p, 3)).astype(np.float32))
+    mass = torch.from_numpy((rng.random(n_p) + 0.5).astype(np.float32))
+    h = torch.from_numpy((rng.random(n_p) * 0.05).astype(np.float32))
+    for method in ("ngp", "cic", "sph"):
+        for q3 in ((0, 0, 0), (1, 0, 1)):
+            ref = rs._scatter_block_values(pos, vel, mass, q3, 16, 32, 1.0,
+                                           method, "velocity", h=h)
+            before = sorted_scatter.LAUNCHES
+            got = rs._scatter_block_values(
+                pos.to(cuda), vel.to(cuda), mass.to(cuda), q3, 16, 32, 1.0,
+                method, "velocity", h=h.to(cuda))
+            torch.cuda.synchronize()
+            assert sorted_scatter.LAUNCHES == before + 1
+            assert torch.equal(got.cpu(), ref), (method, q3)

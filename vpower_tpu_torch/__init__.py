@@ -10,7 +10,11 @@ their plain PyTorch versions run.  Folded spectra (``folded_spectrum``,
 ``fused_fold_full_spectrum``, ...) reach a dynamic range ``m * n``
 with (n)^3 grids; the fused ones deposit each beta's phased channels
 with the same sorted-deposit kernel, as SPH (``method="sph"``) deposits
-each of its footprint's offsets.  Snapshots (HDF5, through ``h5py``,
+each of its footprint's offsets.  ``streamed_folded_sweep`` streams
+the m^3 full-resolution blocks of a derived field (the NN velocity at
+range 2048 from 256^3 grids) through per-block descents, with a
+certificate that every cell's neighbour lay within the block's margin.
+Snapshots (HDF5, through ``h5py``,
 imported only when one is read or written), ``.npz`` checkpoints and
 the out-of-core ``BrickStore`` load onto the card unless the caller
 names another device.  Importing the package needs neither a card nor
@@ -57,6 +61,7 @@ from .run.pipeline import (
     spectrum_from_field,
     spectrum_from_folded,
 )
+from .run.streamed import streamed_folded_spectrum, streamed_folded_sweep
 from .spectrum.power import real_power_binned, shell_bin, shell_bin_rfft
 from .spectrum.spectrum import (
     PowerSpectrum,
@@ -97,6 +102,8 @@ __all__ = [
     "fused_fold_full_spectrum",
     "cross_spectrum",
     "spectrum_from_folded",
+    "streamed_folded_sweep",
+    "streamed_folded_spectrum",
     "BrickStore",
     "real_power_binned",
     "shell_bin",

@@ -1,9 +1,20 @@
 """Float arithmetic that must round exactly as the JAX package does."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["div"]
+
+
+@functools.lru_cache(maxsize=1024)
+def _divisor(s: float, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """The 0-d divisor tensor, made once per value, dtype and device:
+    making a tensor on the card copies from the host and waits for the
+    stream, which a loop of block descents must not do per call."""
+    return torch.tensor(s, dtype=dtype, device=device)
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -15,4 +26,4 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     move a particle across a cell boundary or flip a nearest-neighbour
     tie), so the divisor goes in as a 0-d tensor on ``x``'s device.
     """
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    return x / _divisor(float(s), x.dtype, x.device)

@@ -134,7 +134,8 @@ def _upsample_cube(x: torch.Tensor) -> torch.Tensor:
 
 
 def _seed_grids_vals(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
-                     box_size: float, n_seeds: int) -> torch.Tensor:
+                     box_size: float, n_seeds: int,
+                     valid=None) -> torch.Tensor:
     """Rank-k nearest-to-centre seeds carrying payload channels.
 
     Returns ``(k, C, n, n, n)`` with C = vals.shape[1] + 4; empty cells
@@ -143,12 +144,16 @@ def _seed_grids_vals(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     here as two stable sorts, by distance and then by id, so ties keep
     input order — and every rank's masked channels go out in ONE sorted
     deposit (K1): at most one winner per (cell, rank), so add == set.
+    ``valid`` (N,) bool gives padding rows the id ``n_cells``: they sort
+    last and K1 drops them.
     """
     n_v = vals.shape[1]
     n_cells = n_grid**3
     cell = box_size / n_grid
     ijk = torch.remainder(torch.floor(div(pos, cell)).to(torch.int32), n_grid)
     ids = (ijk[:, 0] * n_grid + ijk[:, 1]) * n_grid + ijk[:, 2]
+    if valid is not None:
+        ids = torch.where(valid, ids, n_cells)
     centers = (ijk.to(pos.dtype) + 0.5) * cell
     d = pos - centers
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
@@ -283,11 +288,13 @@ def nn_gather_grid(
     n_seeds: int = 2,
     rounds: int = 1,
     return_d2: bool = False,
+    valid=None,
 ):
     """``(payload (V, N, N, N), occ ())``: per cell, the payload of the
     particle nearest to the cell centre, plus a scalar occupancy flag
-    (1.0 iff any particle exists; occupancy is spatially uniform because
-    the coarsest solve is global).  ``vals`` is (Np, V) f32, V may be 0.
+    (1.0 iff any valid particle exists; occupancy is spatially uniform
+    because the coarsest solve is global).  ``vals`` is (Np, V) f32, V
+    may be 0; ``valid`` (Np,) bool leaves padding rows out entirely.
     Same seeds, schedule and sweeps as the TPU ran (see the module
     note).  ``return_d2`` appends the squared distance (physical units)
     to the chosen candidate, an upper bound on the true NN distance that
@@ -305,7 +312,8 @@ def nn_gather_grid(
     # pre-merged mode uses only rank 0 of the finest level; coarser
     # levels regain n_seeds ranks from the 8 children of each block
     k_fine = 1 if premerge else n_seeds
-    seeds = {n_grid: _seed_grids_vals(pos, vals, n_grid, box_size, k_fine)}
+    seeds = {n_grid: _seed_grids_vals(pos, vals, n_grid, box_size, k_fine,
+                                      valid=valid)}
     n_ch = seeds[n_grid].shape[1]
     for n in levels[1:]:
         pd2 = _parent_dist2(n * 2, box_size, periodic, dtype, pos.device)
@@ -421,7 +429,7 @@ def nn_interp_to_field(particles: Particles, n_grid: int,
 # index path                                                             #
 # ---------------------------------------------------------------------- #
 def _seed_grids(pos: torch.Tensor, n_grid: int, box_size: float,
-                n_seeds: int):
+                n_seeds: int, valid=None):
     """Rank-k nearest-to-own-centre particle per cell, k < n_seeds:
     ``(seed_idx (k, n, n, n) i32, seed_pos (k, 3, n, n, n))``, index -1
     where a cell holds fewer than k + 1 particles.  As the TPU ran it:
@@ -429,10 +437,12 @@ def _seed_grids(pos: torch.Tensor, n_grid: int, box_size: float,
     ties in input order — and ONE sorted deposit (K1) of the masked
     channels [idx_hi, idx_lo, x, y, z] per rank; the index rides as
     hi = (i+1) >> 11 and lo = (i+1) & 2047, both exact in f32, and
-    (0, 0) decodes to -1."""
+    (0, 0) decodes to -1.  ``valid`` as in :func:`_seed_grids_vals`."""
     cell = box_size / n_grid
     ijk = torch.remainder(torch.floor(div(pos, cell)).to(torch.int32), n_grid)
     ids = (ijk[:, 0] * n_grid + ijk[:, 1]) * n_grid + ijk[:, 2]
+    if valid is not None:
+        ids = torch.where(valid, ids, n_grid**3)
     d = pos - (ijk.to(pos.dtype) + 0.5) * cell
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
     by_d2 = torch.sort(d2, stable=True).indices
@@ -535,12 +545,13 @@ def _pool_seeds(seed_idx, seed_pos, parent_dist2, n_seeds: int, big: float):
 
 
 def _ring_refine(pos, n_grid: int, box_size: float, periodic: bool,
-                 radius: int, best_idx, best_d2):
+                 radius: int, best_idx, best_d2, valid=None):
     """Exact particle-major correction: every particle scatter-mins its
     distance into all cells within ``radius`` rings of its own cell,
     then the lowest index among each cell's minimisers wins (a second
     scatter).  Both scatters are ``amin``, which does not depend on
-    order; rows aimed at no cell land in one extra slot."""
+    order; rows aimed at no cell, and (``valid``) padding rows, land in
+    one extra slot."""
     n_cells = n_grid**3
     cell = box_size / n_grid
     dev = pos.device
@@ -561,6 +572,8 @@ def _ring_refine(pos, n_grid: int, box_size: float, periodic: bool,
             inside = ((tgt >= 0) & (tgt < n_grid)).all(dim=1)
             flat = (tgt[:, 0] * n_grid + tgt[:, 1]) * n_grid + tgt[:, 2]
             flat = torch.where(inside, flat, n_cells)
+        if valid is not None:
+            flat = torch.where(valid, flat, n_cells)
         d2 = delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1] + \
             delta[:, 2] * delta[:, 2]
         return flat.long(), d2
@@ -584,7 +597,7 @@ def _ring_refine(pos, n_grid: int, box_size: float, periodic: bool,
 
 def nn_assign(pos: torch.Tensor, n_grid: int, box_size: float,
               periodic: bool = True, n_seeds: int = 2, rounds: int = 1,
-              refine_radius: int = 0) -> torch.Tensor:
+              refine_radius: int = 0, valid=None) -> torch.Tensor:
     """(N, N, N) int32: index of the particle nearest to each cell
     centre (the reference's ``pyann.nn2(k=1)``, ``interp.py:1027-1034``).
     ``periodic`` picks the metric: minimum image or open box.  Levels
@@ -593,7 +606,9 @@ def nn_assign(pos: torch.Tensor, n_grid: int, box_size: float,
     others the sequential sweep; this is the TPU's schedule of
     ``nn_assign``.  ``refine_radius > 0`` adds the particle-major ring
     refinement: exact wherever the true NN lies within that many cells
-    of the query."""
+    of the query.  ``valid`` (N,) bool leaves padding rows out of the
+    seeds and the ring (the streamed blocks' fixed-shape candidate
+    windows); a cell with no valid particle within reach gets -1."""
     dtype = pos.dtype
     pos = torch.remainder(pos, box_size)
     big = float(torch.finfo(dtype).max)
@@ -601,7 +616,8 @@ def nn_assign(pos: torch.Tensor, n_grid: int, box_size: float,
     while levels[-1] > _COARSEST and levels[-1] % 2 == 0:
         levels.append(levels[-1] // 2)
 
-    seeds = {n_grid: _seed_grids(pos, n_grid, box_size, n_seeds)}
+    seeds = {n_grid: _seed_grids(pos, n_grid, box_size, n_seeds,
+                                 valid=valid)}
     for n in levels[1:]:
         pd2 = _parent_dist2(n * 2, box_size, periodic, dtype, pos.device)
         seeds[n] = _pool_seeds(*seeds[n * 2], pd2, n_seeds, big)
@@ -631,7 +647,8 @@ def nn_assign(pos: torch.Tensor, n_grid: int, box_size: float,
     best_idx, _, best_d2 = state
     if refine_radius > 0:
         best_idx, best_d2 = _ring_refine(pos, n_grid, box_size, periodic,
-                                         refine_radius, best_idx, best_d2)
+                                         refine_radius, best_idx, best_d2,
+                                         valid=valid)
     return best_idx
 
 

@@ -143,8 +143,9 @@ def _flat_tile(tt, nt):
 
 
 def _tier1_count(pos_c, n_grid: int, zc: int, h: int,
-                 periodic: bool) -> int:
-    """Rows tier 1 needs (one device-to-host read)."""
+                 periodic: bool, valid_rows=None) -> int:
+    """Rows tier 1 needs (one device-to-host read); rows with
+    ``valid_rows`` False are not counted."""
     nt = _ntiles(n_grid, zc)
     _, pt, off = _cells_tiles(pos_c, n_grid, zc)
     quals, _ = _axis_quals(off, h, zc)
@@ -152,7 +153,8 @@ def _tier1_count(pos_c, n_grid: int, zc: int, h: int,
     for j in range(8):
         use = (j & 1, (j >> 1) & 1, (j >> 2) & 1)
         valid = torch.ones(pos_c.shape[0], dtype=torch.bool,
-                           device=pos_c.device)
+                           device=pos_c.device) if valid_rows is None \
+            else valid_rows
         for a in range(3):
             if use[a]:
                 valid = valid & quals[a]
@@ -182,10 +184,12 @@ def _sorted_spans(keys: torch.Tensor, n_src: int, n_rows: int, n_t: int):
 
 
 def _tier1_build(pos_c, payload, n_grid: int, zc: int, h: int,
-                 periodic: bool, n_rows: int, apply_shift: bool):
+                 periodic: bool, n_rows: int, apply_shift: bool,
+                 valid_rows=None):
     """rows (8, n_rows) f32 and spans s0, s1 (T,) i32.  ``apply_shift``
     bakes periodic images into the coordinates (the wrap-free kernel
-    variant); the minimum-image variant leaves it off."""
+    variant); the minimum-image variant leaves it off.  Rows with
+    ``valid_rows`` False enter no span."""
     nt = _ntiles(n_grid, zc)
     n_t = nt[0] * nt[1] * nt[2]
     np_ = pos_c.shape[0]
@@ -195,7 +199,8 @@ def _tier1_build(pos_c, payload, n_grid: int, zc: int, h: int,
     keys = []
     for j in range(8):
         use = (j & 1, (j >> 1) & 1, (j >> 2) & 1)
-        valid = torch.ones(np_, dtype=torch.bool, device=pos_c.device)
+        valid = torch.ones(np_, dtype=torch.bool, device=pos_c.device) \
+            if valid_rows is None else valid_rows
         tt = []
         for a in range(3):
             if use[a]:
@@ -308,15 +313,19 @@ def _tier2_build(pos_c, payload, sel, selv, h_tile, h1: int, n_grid: int,
     return rows, s0, s1
 
 
-def _passc_build(pos_c, payload, h_tile, n_grid: int, zc: int, n_rows: int):
+def _passc_build(pos_c, payload, h_tile, n_grid: int, zc: int, n_rows: int,
+                 valid_rows=None):
     """Full-array spans for the tiles needing halo > 8: every particle
-    is a candidate; the kernel takes the minimum image itself."""
+    is a candidate (but rows with ``valid_rows`` False, moved far away
+    as the padding is); the kernel takes the minimum image itself."""
     np_ = pos_c.shape[0]
     rows = torch.zeros((8, n_rows), dtype=torch.float32,
                        device=pos_c.device)
-    rows[:3, :np_] = pos_c.T
+    far = _f32(4.0 * n_grid + 1e6)
+    rows[:3, :np_] = pos_c.T if valid_rows is None else torch.where(
+        valid_rows[None, :], pos_c.T, far)
     rows[3:3 + payload.shape[1], :np_] = payload.T
-    rows[:3, np_:] = _f32(4.0 * n_grid + 1e6)
+    rows[:3, np_:] = far
     s1 = torch.where(h_tile > _H2_CAP, np_, 0).to(torch.int32)
     return rows, torch.zeros_like(s1), s1
 
@@ -512,11 +521,12 @@ def _choose_h1(h_tile: torch.Tensor) -> int:
 
 
 def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
-                     box_size: float, periodic: bool = True):
+                     box_size: float, periodic: bool = True, valid=None):
     """Exact NN payload per cell: ``(payload (V, N, N, N), d2 (N, N, N)
     physical units, occ scalar)``, V <= 5, ``n_grid % 64 == 0``.  The
     reference's exact-ANN deposition (``interp.py:1018-1049``, eps=0,
-    then ``f[index]``)."""
+    then ``f[index]``).  ``valid`` (Np,) bool: rows with False never
+    become candidates (the streamed blocks' padded windows)."""
     from .nn import nn_gather_grid
 
     zc = _zc(n_grid)
@@ -530,7 +540,7 @@ def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     # payload is overwritten, so the seed payload is never needed
     _, occ, d2_seed = nn_gather_grid(
         pos, pos.new_zeros((pos.shape[0], 0)), n_grid, box_size,
-        periodic=periodic, return_d2=True)
+        periodic=periodic, return_d2=True, valid=valid)
     pos_c, d2_c = _to_cells(pos, d2_seed, n_grid, box_size)
     del d2_seed
     h_tile = _h_required(d2_c, n_grid, zc)
@@ -543,10 +553,12 @@ def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     # wrap-free rows need unambiguous image inference: >= 3 tiles/axis
     kernel_wrap = periodic and min(nt) < 3
 
-    n_rows1 = _round_rows(_tier1_count(pos_c, n_grid, zc, h1, periodic))
+    n_rows1 = _round_rows(_tier1_count(pos_c, n_grid, zc, h1, periodic,
+                                       valid_rows=valid))
     rows1, s0, s1 = _tier1_build(pos_c, vals, n_grid, zc, h1, periodic,
                                  n_rows1,
-                                 apply_shift=periodic and not kernel_wrap)
+                                 apply_shift=periodic and not kernel_wrap,
+                                 valid_rows=valid)
     # seed state: zero payload and the nudged bound, which the true NN
     # beats with strict < at every cell
     state = torch.cat([
@@ -560,6 +572,8 @@ def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     n_flag = int(((h_tile > h1) & (h_tile <= _H2_CAP)).sum())
     if n_flag > 0:
         near = _tier2_near(pos_c, h_tile, h1, n_grid, zc)
+        if valid is not None:
+            near = near & valid
         n_near = int(near.sum())
         if n_near > 0:
             n_sub = min(_round_rows(n_near), pos.shape[0])
@@ -573,7 +587,8 @@ def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
 
     if int((h_tile > _H2_CAP).sum()) > 0:
         rows3, s0c, s1c = _passc_build(pos_c, vals, h_tile, n_grid, zc,
-                                       _round_rows(pos.shape[0]))
+                                       _round_rows(pos.shape[0]),
+                                       valid_rows=valid)
         state = run_pass(s0c, s1c, rows3, state, periodic)
 
     return state[:n_pay], state[n_pay] * _f32(cell * cell), occ

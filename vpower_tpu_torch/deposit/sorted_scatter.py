@@ -6,6 +6,10 @@ Replaces the Pallas TPU kernel ``vpower_tpu/deposit/mxu_scatter.py``
 sorted ascending and one row of values per id, it forms
 ``out[c, id] = carry[c, id] + sum_{k: sids[k] == id} svals[k, c]``.
 
+Rows whose id lies outside ``[0, n_cells)`` are dropped, on both routes:
+callers mark padding rows and rows outside a block with the sentinel
+id ``n_cells``, which sorts last.
+
 On a CUDA tensor, :func:`deposit_sorted` launches the hand-written
 kernel ``csrc/sorted_scatter.cu`` (tiles of cells in shared memory,
 one thread per run summing it in row order, coalesced plane writes, no
@@ -34,13 +38,18 @@ LAUNCHES = 0
 def deposit_sorted_plain(sids: torch.Tensor, svals: torch.Tensor,
                          n_cells: int,
                          carry: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version: ``zeros(C, n_cells).index_add_`` (+ carry).
-    Ids must lie in ``[0, n_cells)``.  On CUDA ``index_add_`` sums with
-    atomics, in no fixed order."""
-    out = torch.zeros((svals.shape[1], n_cells), dtype=svals.dtype,
+    """Plain PyTorch version: ``index_add_`` into ``n_cells + 1``
+    columns, every id outside ``[0, n_cells)`` sent to the last one,
+    which is cut off (+ carry): such rows are dropped, as the kernel
+    drops them, and the others keep their row order.  On CUDA
+    ``index_add_`` sums with atomics, in no fixed order."""
+    ids = sids.to(torch.int64)
+    ids = torch.where((ids >= 0) & (ids < n_cells), ids, n_cells)
+    out = torch.zeros((svals.shape[1], n_cells + 1), dtype=svals.dtype,
                       device=svals.device)
-    out.index_add_(1, sids.to(torch.int64), svals.T)
-    return out if carry is None else carry + out
+    out.index_add_(1, ids, svals.T)
+    out = out[:, :n_cells]
+    return out.contiguous() if carry is None else carry + out
 
 
 def _check(sids, svals, n_cells, carry):
@@ -67,7 +76,8 @@ def deposit_sorted(sids: torch.Tensor, svals: torch.Tensor, n_cells: int,
                    carry: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Deposit ``svals`` (N, C) f32 at the sorted int32 ids ``sids`` (N,)
     into a CHANNELS-FIRST (C, n_cells) grid, accumulating onto ``carry``
-    when given.  Each cell's rows are summed in row order."""
+    when given.  Each cell's rows are summed in row order; rows with an
+    id outside ``[0, n_cells)`` are dropped."""
     global LAUNCHES
     _check(sids, svals, n_cells, carry)
     if sids.device.type == "cpu":
