@@ -8,11 +8,12 @@ Drives the port's paths through the entry points a user calls
 ``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``,
 ``fused_fold_full_spectrum``, ``sph_interp_to_field``,
 ``check_conservation``, ``save_field``, ``BrickStore``,
-``streamed_folded_sweep``, ``streamed_folded_spectrum``) on 10,077,696
-particles and a 512^3 grid: the fast NN, NGP and CIC (the default
-method) velocity spectra, the exact NN spectrum (window sweep), the
-index path, the folded spectrum, the SPH spectrum, and the
-block-streamed folded NN velocity spectrum at range 2048.  The particles
+``streamed_folded_sweep``, ``streamed_folded_spectrum``, and the
+command-line interface ``run/cli.py``) on 10,077,696 particles and a 512^3
+grid: the fast NN, NGP and CIC (the default method) velocity spectra,
+the exact NN spectrum (window sweep), the index path, the folded
+spectrum, the SPH spectrum, the block-streamed folded NN velocity
+spectrum at range 2048, and the CLI's routes over them.  The particles
 are made on the card from a seeded ``torch.Generator`` with the shapes
 of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
 velocity field sampled by a 216^3 lattice jittered by 3 cells.
@@ -115,10 +116,35 @@ is non-zero):
    particles with a spherical void: blocks escalate, none left
    uncertified, Psum within 1e-6 of the CPU run; again through a disk
    cache with two beta batches, within 1e-6.
+14. cli: the command-line interface after the snapshot load
+   (``run/cli.py:_run_loaded``; the card's host has no ``h5py``, so the
+   particles come from memory), each route into a fresh directory on an
+   empty planner calibration, with ``reset_peak_memory_stats()`` just
+   before it.  First the plans alone, and a 1024^3 NN velocity plan
+   with no ``-M``, which must fold.  (a) ``-N 512 --quantity velocity``
+   with ``--method`` nn, nn ``--exact``, ngp, cic and sph (the base
+   particles; their densities are uniform); (b) the README run
+   ``-N 1024 -M 512`` (NGP momentum, m = 2, 8 ``fused_fold_spectrum``
+   calls); (c) (b) again into its directory; (d) (b) again after
+   deleting ``Pk.txt`` and ``betas_done.txt``; (e) ``-N 2048 -M 256
+   --method nn --quantity velocity --betas 8 --seed 1 --beta-batch 8``
+   ([streamed] (a) through the CLI, plus the splice's coarse 256^3
+   spectrum).  Checks: the plan's fold and grid; the calls the CLI
+   made are the route ``streamed_pipeline`` names (none for (c) and
+   (d)); the measured peak (the particles and the route) <= the
+   predicted one <= twice it; Pk.txt against the call it wraps, Nsample
+   equal and Psum within 1e-6 (phases 5 and 7's NN, exact and CIC
+   spectra; one direct call for NGP and SPH), (b) within 1e-5 of phase
+   10's ``fused_fold_full_spectrum``, (e) within 1e-6 of the sum of
+   [streamed] (a)'s sub-spectra with no uncertified cell; (c) and (d)
+   byte-identical to (b).  Printed: the wall, the time inside the
+   wrapped calls and the CLI's own, ``_rebuild_derived``'s calls,
+   loads and time, the launches, ``max_memory_reserved``.
 
 The kernel summary is one JSON line: per kernel its launches on the main
-path's run (K1: the NN path's, the fold's, the SPH spectrum's and the
-streamed runs', by path under ``launches_by_path``, its fold, SPH and
+path's run (K1: the NN path's, the fold's, the SPH spectrum's, the
+streamed runs' and the CLI's routes (``cli_*``), by path under
+``launches_by_path``, its fold, SPH and
 streamed calls under ``fold``, ``sph`` and ``streamed``; K2 and K4:
 also their streamed launches and calls), its largest error
 against the plain version, its time, the plain version's, the library
@@ -189,6 +215,7 @@ STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
 STREAM_SMALL_N = 64      # SPH and certificate runs: range 128, m = 2,
 VOID_RADIUS = 0.1        # 157,464 particles; a spherical void (box units)
 STREAM_CPU_RTOL = 1e-6   # card sweep against the CPU sweep, combined Psum
+CLI_RTOL = 1e-6          # the CLI's Pk.txt against the call it wraps
 # A candidate's block-frame coordinates are float32 roundings of (x +
 # margin - q L / m): ~3e-5 cell at range 2048, far below this gap
 STREAM_GAP_MAX = 1e-3
@@ -1109,6 +1136,7 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"{st['escalated_blocks']}, uncertified "
           f"{st['uncertified_cells']}", flush=True)
     rows, starts, counts_b, pad, ext_box, margin_phys = cand_cap.results[0]
+    sweep_all = sweep.combine_all()  # the [cli] phase's reference
     del sweep, cand_cap
     torch.cuda.empty_cache()
 
@@ -1430,7 +1458,230 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"{host_s:.1f} s on the host, overlapping (c)-(e)); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     rec["launches"] = {"a": launches_a, "c": launches_c}
+    rec["sweep_all"] = sweep_all
     return rec
+
+
+def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
+    """[cli]: the command-line interface after the snapshot load
+    (``run/cli.py:_run_loaded``, module docstring, phase 14).  Returns
+    the K1, K2 and K4 launches of each route, by route."""
+    import tempfile
+
+    from vpower_tpu_torch import parallel
+    from vpower_tpu_torch.parallel import planner
+    from vpower_tpu_torch.run import cli
+    from vpower_tpu_torch.run import pipeline as pipe_mod
+    from vpower_tpu_torch.run import streamed as rs
+    from vpower_tpu_torch.spectrum import spectrum as spec_mod
+
+    sorted_scatter, nn_sweep, nn_window, nn_index_sweep = kernel_modules
+    t_phase = time.perf_counter()
+    dev = particles.pos.device
+    n_p = len(particles)
+    part_bytes = sum(t.numel() * t.element_size() for t in (
+        particles.pos, particles.vel, particles.mass, particles.density))
+    hbm = planner.device_hbm_bytes(dev)
+    gib = 2**30
+
+    def parse(out, argv):
+        return cli.build_parser().parse_args(
+            ["-i", "in-memory", "-o", out, "-f"] + argv)
+
+    def plan_of(args):
+        return planner.plan_run(
+            n_total=args.ntot, n_devices=1, hbm_bytes=hbm,
+            n_particles=n_p, max_n_grid=args.maxngrid,
+            beta_subsample=args.betas, method=args.method,
+            quantity=args.quantity, beta_batch=args.beta_batch,
+            margin_cells=args.margin, certify=not args.no_certify)
+
+    scatter = ["-N", str(N_GRID), "--quantity", "velocity"]
+    routes = [(f"(a) {name}", scatter + extra, (1, N_GRID)) for name, extra
+              in (("nn", ["--method", "nn"]),
+                  ("nn --exact", ["--method", "nn", "--exact"]),
+                  ("ngp", ["--method", "ngp"]),
+                  ("cic", ["--method", "cic"]),
+                  ("sph", ["--method", "sph"]))]
+    readme = ["-N", str(N_GRID * FOLD_M), "-M", str(N_GRID)]
+    routes += [("(b) fused", readme, (FOLD_M, N_GRID)),
+               ("(c) resume", readme, (FOLD_M, N_GRID)),
+               ("(d) crash-resume", readme, (FOLD_M, N_GRID)),
+               ("(e) streamed", ["-N", str(STREAM_N * STREAM_M), "-M",
+                                 str(STREAM_N), "--method", "nn",
+                                 "--quantity", "velocity", "--betas",
+                                 str(STREAM_BETAS), "--seed", "1",
+                                 "--beta-batch", str(STREAM_BETAS)],
+                (STREAM_M, STREAM_N))]
+
+    # plans only, before any route, on empty calibrations
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    planner._CALIB_PATH = os.path.join(work.name, "calib_plans.json")
+    for name, argv, _ in routes:
+        if name[:3] in ("(c)", "(d)"):
+            continue
+        print(f"[cli] plan {name} ({' '.join(argv)}): "
+              f"{plan_of(parse(work.name, argv)).describe()}", flush=True)
+    plan_nn = plan_of(parse(work.name, ["-N", str(N_GRID * FOLD_M),
+                                        "--method", "nn", "--quantity",
+                                        "velocity"]))
+    print(f"[cli] plan -N {N_GRID * FOLD_M} --method nn --quantity "
+          f"velocity (no -M): {plan_nn.describe()}", flush=True)
+    _check(plan_nn.fold_m >= 2, f"a {N_GRID * FOLD_M}^3 NN velocity plan "
+           f"on {hbm / gib:.1f} GiB did not fold")
+
+    def pk(out, name="Pk.txt"):
+        return np.loadtxt(os.path.join(out, name))
+
+    def same_as(got, ref, rtol, what):
+        """Pk.txt rows (k, P, Psum, Nsample) against a spectrum."""
+        _check(got.shape[0] == len(ref) and np.array_equal(got[:, 3],
+                                                           ref.Nsample),
+               f"{what}: Nsample differs")
+        sel = ref.Psum > 0
+        err = float(np.max(np.abs(got[sel, 2] - ref.Psum[sel])
+                           / ref.Psum[sel]))
+        _check(err <= rtol, f"{what}: Psum rel err {err:.3e} > {rtol}")
+        return err
+
+    launches = {}
+    for i, (name, argv, (fold_m, n_grid)) in enumerate(routes):
+        tag = name[:3]
+        if tag not in ("(c)", "(d)"):  # (c) and (d) run again in (b)'s
+            out = os.path.join(work.name, f"route{i}")
+            os.makedirs(out)
+        if tag == "(c)":
+            with open(os.path.join(out, "Pk.txt"), "rb") as fh:
+                pk_b = fh.read()
+        if tag == "(d)":
+            os.remove(os.path.join(out, "Pk.txt"))
+            os.remove(os.path.join(out, "betas_done.txt"))
+        args = parse(out, argv)
+        # an empty calibration a route: the prediction is the constants'
+        planner._CALIB_PATH = os.path.join(work.name, f"calib_{tag}.json")
+        st = {}
+        sweep = rs.streamed_folded_sweep
+
+        def sweep_with_stages(*a, **k):
+            return sweep(*a, stage_times=st, **k)
+
+        rs.streamed_folded_sweep = sweep_with_stages
+        for mod in kernel_modules:
+            mod.LAUNCHES = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with _Capture(parallel, "plan_run", keep=True) as plans, \
+                _Capture(spec_mod, "scan_sub_spectra", keep=True) as scans, \
+                _Stages(torch, [(cli, "_rebuild_derived")]) as rebuilt, \
+                _Stages(torch, [(pipe_mod, "power_spectrum"),
+                                (pipe_mod, "fused_fold_spectrum"),
+                                (rs, "streamed_folded_sweep")]) as wrapped:
+            t0 = time.perf_counter()
+            rc = cli._run_loaded(args, particles, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rs.streamed_folded_sweep = sweep
+        peak = torch.cuda.max_memory_allocated() - (held - part_bytes)
+        reserved = torch.cuda.max_memory_reserved()
+        key = "_".join(name.replace("(", "").replace(")", "")
+                       .replace("-", " ").split())
+        launches[key] = {"sorted_scatter": sorted_scatter.LAUNCHES,
+                         "nn_sweep": nn_sweep.LAUNCHES,
+                         "window_sweep": nn_window.LAUNCHES,
+                         "nn_index_sweep": nn_index_sweep.LAUNCHES}
+        _check(rc == 0, f"{name}: the CLI returned {rc}")
+        plan = plans.results[-1]
+        calls = [n for n, _ in wrapped.times]
+        in_calls = sum(sec for _, sec in wrapped.times)
+        loads = sum(len(r) for r in scans.results)
+        rebuild_s = sum(sec for _, sec in rebuilt.times)
+        streamed = planner.streamed_pipeline(args.method, args.quantity,
+                                             plan.fold_m)
+        _check((plan.fold_m, plan.n_grid) == (fold_m, n_grid),
+               f"{name}: planned fold {plan.fold_m} x grid {plan.n_grid}, "
+               f"not {fold_m} x {n_grid}")
+        if tag in ("(c)", "(d)"):
+            want = []  # nothing pending: no beta recomputed
+        elif plan.fold_m == 1:
+            want = ["power_spectrum"]
+        elif streamed:
+            want = ["streamed_folded_sweep", "power_spectrum"]  # splice
+        else:
+            want = ["fused_fold_spectrum"] * FOLD_M**3
+        _check(plan.streamed == streamed and calls == want,
+               f"{name}: the CLI called {calls}, the plan "
+               f"(streamed={plan.streamed}) names {want}")
+        pred = plan.bytes_per_device
+        line = (f"[cli] {name} ({' '.join(argv)}): wall {wall:.4f} s, "
+                f"of it {in_calls:.4f} s in {len(calls)} wrapped calls "
+                f"({', '.join(sorted(set(calls))) or 'none'}), the CLI's "
+                f"own {wall - in_calls:.4f} s; _rebuild_derived "
+                f"{len(rebuilt.times)} calls, {loads} sub-spectrum loads, "
+                f"{rebuild_s:.4f} s; launches K1 "
+                f"{launches[key]['sorted_scatter']}, K2 "
+                f"{launches[key]['nn_sweep']}, K4 "
+                f"{launches[key]['window_sweep']}, K3 "
+                f"{launches[key]['nn_index_sweep']}; peak (the particles "
+                f"and the route) {peak / gib:.3f} GiB, predicted "
+                f"{pred / gib:.3f} GiB ({pred / peak:.3f}x), "
+                f"max_memory_reserved {reserved / gib:.3f} GiB "
+                f"({(held - part_bytes) / gib:.3f} GiB held beside the "
+                f"particles)")
+        got = pk(out)
+        if tag == "(a)":
+            method = args.method
+            ref = refs.get("exact" if args.exact else method)
+            direct = ""
+            if ref is None:  # no earlier phase computed it: one call
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = vt.power_spectrum(particles, N_GRID, method=method,
+                                        quantity="velocity")
+                torch.cuda.synchronize()
+                direct = (f"; the direct call {time.perf_counter() - t0:.4f}"
+                          f" s")
+            err = same_as(got, ref, CLI_RTOL, name)
+            line += (f"; Pk.txt against the direct call: Nsample equal, "
+                     f"Psum max rel err {err:.3e} (gate {CLI_RTOL}){direct}")
+        elif tag == "(b)":
+            err = same_as(got, refs["fold"], FOLD_RTOL, name)
+            line += (f"; Pk.txt against fused_fold_full_spectrum(particles, "
+                     f"{N_GRID}, {FOLD_M}): Nsample equal, Psum max rel err "
+                     f"{err:.3e} (gate {FOLD_RTOL})")
+        elif tag in ("(c)", "(d)"):
+            with open(os.path.join(out, "Pk.txt"), "rb") as fh:
+                _check(fh.read() == pk_b, f"{name}: Pk.txt differs from "
+                       f"(b)'s")
+            n_done = len(open(os.path.join(out, "betas_done.txt"))
+                         .readlines())
+            _check(n_done == FOLD_M**3, f"{name}: {n_done} betas done")
+            line += (f"; Pk.txt byte-identical to (b)'s, {n_done} betas "
+                     f"done, none recomputed")
+        else:
+            err = same_as(got, refs["streamed"], CLI_RTOL, name)
+            full = pk(out, "Pk_full.txt")
+            n_done = len(open(os.path.join(out, "betas_done.txt"))
+                         .readlines())
+            _check(st.get("uncertified_cells") == 0,
+                   f"{name}: uncertified cells {st.get('uncertified_cells')}")
+            _check(n_done == STREAM_BETAS and np.isfinite(full).all()
+                   and full[0, 3] > 0, f"{name}: {n_done} betas, "
+                   f"Pk_full.txt finite {np.isfinite(full).all()}")
+            line += (f"; Pk.txt against the sum of [streamed] (a)'s "
+                     f"{STREAM_BETAS} sub-spectra: Nsample equal, Psum max "
+                     f"rel err {err:.3e} (gate {CLI_RTOL}); certificate "
+                     f"{ {k: st[k] for k in ('suspect_cells', 'escalated_blocks', 'uncertified_cells')} }; "
+                     f"Pk_full.txt {full.shape[0]} bins from k "
+                     f"{full[0, 0]:.4f}")
+        print(line, flush=True)
+        if tag not in ("(c)", "(d)"):
+            _check(peak <= pred <= 2 * peak, f"{name}: predicted peak "
+                   f"{pred / gib:.3f} GiB outside [1, 2] x the measured "
+                   f"{peak / gib:.3f} GiB")
+    work.cleanup()
+    print(f"[cli] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def _k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
@@ -2355,7 +2606,7 @@ def main():
           flush=True)
     _check(errs["fold identity"] <= FOLD_IDENTITY_RTOL,
            f"fold identity Psum rel err {errs['fold identity']:.3e}")
-    del spec_fold, unfolded, k_u, psum_u, nsamp_u
+    del unfolded, k_u, psum_u, nsamp_u  # spec_fold: for [cli]
     torch.cuda.empty_cache()
 
     # ---- 11. SPH (512^3, 125 offsets) and 12. I/O ------------------
@@ -2372,6 +2623,17 @@ def main():
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
     torch.cuda.empty_cache()
 
+    # ---- 14. the CLI -----------------------------------------------
+    cli_l = _cli_phase(
+        torch, vt, particles, smi,
+        {"nn": spec_nn, "exact": spec_x, "cic": spec_cic, "fold": spec_fold,
+         "streamed": stream["sweep_all"]},
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    torch.cuda.empty_cache()
+
+    def cli_launches(kernel):
+        return {f"cli_{key}": n[kernel] for key, n in cli_l.items()}
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     def entry(name, replaces, launches, err, rec, library=None):
         return {"name": name, "route": "cuda",
@@ -2385,7 +2647,8 @@ def main():
     k1_entry = entry(
         "sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
         launches["sorted_scatter"] + f_launches + sph_rec["launches"]
-        + sa["sorted_scatter"] + sc["sorted_scatter"],
+        + sa["sorted_scatter"] + sc["sorted_scatter"]
+        + sum(cli_launches("sorted_scatter").values()),
         max(k1_err, fold["err"], sph_rec["err"],
             stream["err"]["sorted_scatter"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
@@ -2394,22 +2657,27 @@ def main():
                                     "fold": f_launches,
                                     "sph": sph_rec["launches"],
                                     "streamed": sa["sorted_scatter"],
-                                    "streamed_exact": sc["sorted_scatter"]}
+                                    "streamed_exact": sc["sorted_scatter"],
+                                    **cli_launches("sorted_scatter")}
     k1_entry["fold"] = fold["calls"]
     k1_entry["sph"] = [sph_rec["k1"]]
     k1_entry["streamed"] = stream["sorted_scatter"]
     k2_entry = entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
-                     launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"],
+                     launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"]
+                     + sum(cli_launches("nn_sweep").values()),
                      max(k2["err"], stream["err"]["nn_sweep"]), k2)
     k2_entry["launches_by_path"] = {"nn": launches["nn_sweep"],
                                     "streamed": sa["nn_sweep"],
-                                    "streamed_exact": sc["nn_sweep"]}
+                                    "streamed_exact": sc["nn_sweep"],
+                                    **cli_launches("nn_sweep")}
     k2_entry["streamed"] = stream["nn_sweep"]
     k4_entry = entry("window_sweep", "vpower_tpu/deposit/nn_window.py:449",
-                     x_launches["window_sweep"] + sc["window_sweep"],
+                     x_launches["window_sweep"] + sc["window_sweep"]
+                     + sum(cli_launches("window_sweep").values()),
                      max(k4["err"], stream["err"]["window_sweep"]), k4)
     k4_entry["launches_by_path"] = {"exact": x_launches["window_sweep"],
-                                    "streamed_exact": sc["window_sweep"]}
+                                    "streamed_exact": sc["window_sweep"],
+                                    **cli_launches("window_sweep")}
     k4_entry["streamed"] = stream["window_sweep"]
     kernels = [
         k1_entry,

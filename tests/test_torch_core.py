@@ -128,8 +128,10 @@ def test_import_does_not_import_jax():
             "sph; "
             "from vpower_tpu_torch.io import bricks, checkpoint, native, "
             "snapshot; "
-            "from vpower_tpu_torch.run import streamed; "
-            "from vpower_tpu_torch.utils import checks; "
+            "from vpower_tpu_torch.run import cli, streamed; "
+            "from vpower_tpu_torch.utils import checks, profiling; "
+            "from vpower_tpu_torch import parallel; "
+            "from vpower_tpu_torch.parallel import planner; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'; "
             "assert 'h5py' not in sys.modules, 'h5py imported'")

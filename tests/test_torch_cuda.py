@@ -835,3 +835,36 @@ def test_streamed_scatter_blocks_on_card_match_cpu(cuda):
             torch.cuda.synchronize()
             assert sorted_scatter.LAUNCHES == before + 1
             assert torch.equal(got.cpu(), ref), (method, q3)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-N", "32", "-M", "16"],                             # fused, 8 betas
+    ["-N", "32", "-M", "16", "--method", "nn", "--quantity", "velocity",
+     "--margin", "8"],                                    # streamed NN
+])
+def test_cli_on_card_matches_cpu(cuda, tmp_path, monkeypatch, argv):
+    """The CLI after the snapshot load (``_run_loaded``) on the card
+    and on the CPU, the same particles: each writes Pk.txt from its own
+    route (K1 every beta; K1 and K2 in every streamed block), Nsample
+    equal and Psum within 1e-6."""
+    from vpower_tpu_torch.io.synthetic import synthetic_particles
+    from vpower_tpu_torch.parallel import planner
+    from vpower_tpu_torch.run import cli
+
+    monkeypatch.setattr(planner, "_CALIB_PATH", str(tmp_path / "calib.json"))
+    p_cpu = synthetic_particles(torch.Generator().manual_seed(0), 16,
+                                jitter=0.4, device="cpu")
+    pk = {}
+    for dev, p in (("cuda", p_cpu.to(cuda)), ("cpu", p_cpu)):
+        out = tmp_path / dev
+        out.mkdir()
+        args = cli.build_parser().parse_args(
+            ["-i", "in-memory", "-o", str(out), "-f"] + argv)
+        before = sorted_scatter.LAUNCHES
+        assert cli._run_loaded(args, p, dev) == 0
+        launched = sorted_scatter.LAUNCHES - before
+        assert launched >= (8 if dev == "cuda" else 0)
+        assert dev == "cuda" or launched == 0
+        pk[dev] = np.loadtxt(out / "Pk.txt")
+    np.testing.assert_array_equal(pk["cuda"][:, 3], pk["cpu"][:, 3])
+    np.testing.assert_allclose(pk["cuda"][:, 2], pk["cpu"][:, 2], rtol=1e-6)

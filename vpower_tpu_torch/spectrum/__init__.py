@@ -19,7 +19,17 @@ from .power import (
     hermitian_weights,
     default_k_bins,
 )
-from .spectrum import PowerSpectrum, SpectrumList
+from .spectrum import (
+    PowerSpectrum,
+    SpectrumList,
+    relative_diff,
+    empty_spectrum_like,
+    beta_half_space,
+    init_beta_space,
+    random_beta_sequence,
+    high_pass_filter_2d,
+)
+from . import fold
 
 __all__ = [
     "power_norm", "vector_power", "scalar_power",
@@ -28,5 +38,7 @@ __all__ = [
     "interlaced_power_from_complex", "real_power_binned",
     "window_compensation", "bin_grid", "bin_grid_local", "shell_bin",
     "shell_bin_local", "shell_bin_rfft", "hermitian_weights",
-    "default_k_bins", "PowerSpectrum", "SpectrumList",
+    "default_k_bins", "PowerSpectrum", "SpectrumList", "relative_diff",
+    "beta_half_space", "empty_spectrum_like", "init_beta_space",
+    "random_beta_sequence", "high_pass_filter_2d", "fold",
 ]

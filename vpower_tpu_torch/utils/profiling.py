@@ -1,0 +1,148 @@
+"""Tracing / profiling utilities.
+
+PyTorch counterpart of :mod:`vpower_tpu.utils.profiling`, with its
+names and output:
+
+* :class:`StageTimer` — named wall-clock spans, synchronized with the
+  card at the end of each span (CUDA launches return before the work is
+  done);
+* :func:`trace` — a ``torch.profiler`` trace context writing a
+  TensorBoard-compatible trace directory (JSON, no tensorboard package
+  needed);
+* :class:`Progress` — rank-0-style stage-weighted progress printing
+  (the reference's tqdm usage, ``parallel_optimized.py:263, 314, 384``).
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+__all__ = ["StageTimer", "trace", "Progress", "sync", "log"]
+
+
+def _first_tensor(x):
+    """The first tensor leaf of ``x`` (a tensor, or a list, tuple or dict
+    holding tensors), else None."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        for item in x:
+            leaf = _first_tensor(item)
+            if leaf is not None:
+                return leaf
+    return None
+
+
+def sync(x=None) -> None:
+    """Wait for the card.  With a tensor (or the first tensor leaf of a
+    list, tuple or dict), wait for that tensor's device, and do nothing
+    when it lies on the CPU; with nothing, wait for the current card if
+    there is one."""
+    if x is None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return
+    leaf = _first_tensor(x)
+    if leaf is not None and leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+
+
+def log(msg: str) -> None:
+    """Timestamped print (the reference's
+    ``print(f'[{datetime.now()}] ...', flush=True)`` idiom)."""
+    print(f"[{datetime.datetime.now()}] {msg}", flush=True)
+
+
+class StageTimer:
+    """Accumulate named wall-clock spans.
+
+    >>> timer = StageTimer()
+    >>> with timer("deposit"):
+    ...     field = deposit(particles, 512)
+    >>> print(timer.report())
+    """
+
+    def __init__(self, device_sync: bool = True):
+        self.spans: Dict[str, List[float]] = {}
+        self.device_sync = device_sync
+        self._result = None
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, result=None):
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            if self.device_sync:
+                sync(self._result)
+                self._result = None
+            self.spans.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def observe(self, result) -> None:
+        """Register the stage's output so the closing sync waits on it."""
+        self._result = result
+
+    def total(self, name: str) -> float:
+        return float(sum(self.spans.get(name, [])))
+
+    def report(self) -> str:
+        lines = []
+        grand = sum(sum(v) for v in self.spans.values())
+        for name, vals in self.spans.items():
+            t = sum(vals)
+            pct = 100.0 * t / grand if grand else 0.0
+            lines.append(
+                f"{name:<24s} {t:8.3f}s  x{len(vals):<4d} {pct:5.1f}%"
+            )
+        lines.append(f"{'total':<24s} {grand:8.3f}s")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace context (CPU and, where there is a card,
+    CUDA activity), written to ``log_dir`` in the TensorBoard trace
+    format when the context closes — the replacement for the
+    reference's memory_profiler runs (``scripts/bcmk.txt``)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+class Progress:
+    """Stage-weighted textual progress, mirroring the reference's tqdm
+    weights (5% index / 80% query / 10% FFT / 5% save,
+    ``parallel_optimized.py:263-487``)."""
+
+    def __init__(self, total: float = 100.0, enabled: bool = True):
+        self.total = total
+        self.done = 0.0
+        self.enabled = enabled
+        self._t0 = time.perf_counter()
+
+    def update(self, amount: float, stage: Optional[str] = None) -> None:
+        self.done = min(self.total, self.done + amount)
+        if not self.enabled:
+            return
+        pct = 100.0 * self.done / self.total
+        elapsed = time.perf_counter() - self._t0
+        eta = elapsed * (self.total - self.done) / self.done if self.done else 0
+        tag = f" [{stage}]" if stage else ""
+        print(
+            f"\rprogress {pct:5.1f}%{tag} elapsed {elapsed:6.1f}s "
+            f"eta {eta:6.1f}s",
+            end="" if pct < 100 else "\n",
+            flush=True,
+        )
