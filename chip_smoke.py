@@ -8,12 +8,14 @@ Drives the port's paths through the entry points a user calls
 ``nn_assign``, ``nn_exact_assign``, ``nn_window_gather``,
 ``fused_fold_full_spectrum``, ``sph_interp_to_field``,
 ``check_conservation``, ``save_field``, ``BrickStore``,
-``streamed_folded_sweep``, ``streamed_folded_spectrum``, and the
-command-line interface ``run/cli.py``) on 10,077,696 particles and a 512^3
-grid: the fast NN, NGP and CIC (the default method) velocity spectra,
-the exact NN spectrum (window sweep), the index path, the folded
-spectrum, the SPH spectrum, the block-streamed folded NN velocity
-spectrum at range 2048, and the CLI's routes over them.  The particles
+``streamed_folded_sweep``, ``streamed_folded_spectrum``, the
+command-line interface ``run/cli.py``, ``make_mesh``,
+``distributed_streamed_sweep`` and ``multihost``) on 10,077,696
+particles and a 512^3 grid: the fast NN, NGP and CIC (the default
+method) velocity spectra, the exact NN spectrum (window sweep), the
+index path, the folded spectrum, the SPH spectrum, the block-streamed
+folded NN velocity spectrum at range 2048, the CLI's routes over them,
+and the block-parallel sweep over a mesh of entries on the one card.  The particles
 are made on the card from a seeded ``torch.Generator`` with the shapes
 of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
 velocity field sampled by a 216^3 lattice jittered by 3 cells.
@@ -126,27 +128,52 @@ is non-zero):
    particles; their densities are uniform); (b) the README run
    ``-N 1024 -M 512`` (NGP momentum, m = 2, 8 ``fused_fold_spectrum``
    calls); (c) (b) again into its directory; (d) (b) again after
-   deleting ``Pk.txt`` and ``betas_done.txt``; (e) ``-N 2048 -M 256
+   deleting ``Pk.txt`` and ``betas_done.txt``; (e) ``-N 1024 -M 256
    --method nn --quantity velocity --betas 8 --seed 1 --beta-batch 8``
-   ([streamed] (a) through the CLI, plus the splice's coarse 256^3
-   spectrum).  Checks: the plan's fold and grid; the calls the CLI
+   (range 1024, 64 blocks of [streamed] (a)'s 320^3 width, plus the
+   splice's coarse 256^3 spectrum).  Checks: the plan's fold and grid; the calls the CLI
    made are the route ``streamed_pipeline`` names (none for (c) and
    (d)); the measured peak (the particles and the route) <= the
    predicted one <= twice it; Pk.txt against the call it wraps, Nsample
    equal and Psum within 1e-6 (phases 5 and 7's NN, exact and CIC
    spectra; one direct call for NGP and SPH), (b) within 1e-5 of phase
    10's ``fused_fold_full_spectrum``, (e) within 1e-6 of the sum of
-   [streamed] (a)'s sub-spectra with no uncertified cell; (c) and (d)
+   the sub-spectra of one direct ``streamed_folded_sweep(particles, 256,
+   4)`` with the same betas, with no uncertified cell; (c) and (d)
    byte-identical to (b).  Printed: the wall, the time inside the
    wrapped calls and the CLI's own, ``_rebuild_derived``'s calls,
    loads and time, the launches, ``max_memory_reserved``.
+15. mesh: the block-parallel streamed sweep over a ``Mesh`` of entries
+   on the one card (correctness only: no speed-up from more cards can
+   show on one).  (a) ``distributed_streamed_sweep(particles, 256, 8,
+   make_mesh(devices=[dev, dev]))``, [streamed] (a)'s 8 betas in one
+   batch, 256 blocks on each entry, the value cache off by the auto
+   rule: each beta's Nsample bitwise and Psum within 1e-5 of [streamed]
+   (a)'s (kept in memory), no suspect cell in either run (the uncached
+   mesh counts suspects without escalating, so a suspect would make the
+   runs differ by design and fails the phase), launches, wall, peak.
+   (b) [streamed] (e)'s void particles on ``make_mesh()`` at range 512
+   (``n_grid`` 128, m = 4, two beta batches, the cache on by the auto
+   rule): escalated blocks and suspect cells equal to the single-card
+   ``streamed_folded_sweep``'s, none uncertified, Nsample bitwise, Psum
+   within 1e-5.  (c) exact round-robin: one small call
+   (``streamed_folded_sweep(devices=[dev] * 3, exact=True)``, range 128)
+   with every K4 call bitwise equal to its plain version, then
+   ``distributed_streamed_sweep(particles, 256, 2, <3 entries>,
+   exact=True)`` against [streamed] (c): Nsample equal, Psum within
+   1e-6.  (d) ``multihost.initialize`` of one process on a free local
+   port with ``device="cuda"`` (``nccl``), ``global_mesh()``, and (b)'s
+   range-512 call on the base particles, bitwise equal to the in-process
+   one-entry mesh; then ``destroy_process_group()``.
 
 The kernel summary is one JSON line: per kernel its launches on the main
 path's run (K1: the NN path's, the fold's, the SPH spectrum's, the
-streamed runs' and the CLI's routes (``cli_*``), by path under
-``launches_by_path``, its fold, SPH and
+streamed runs', the CLI's routes (``cli_*``) and the mesh's runs
+(``mesh``, ``mesh_exact``), by path under ``launches_by_path``, its
+fold, SPH and
 streamed calls under ``fold``, ``sph`` and ``streamed``; K2 and K4:
-also their streamed launches and calls), its largest error
+also their streamed and mesh launches and their streamed calls), its
+largest error
 against the plain version, its time, the plain version's, the library
 call's (K1 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
@@ -209,6 +236,13 @@ RING_MISS_MAX = 1e-5
 STREAM_N = 256           # the streamed sweep: 256^3 folded grids,
 STREAM_M = 8             # m = 8: range 2048, 512 blocks
 STREAM_BETAS = 8         # random_beta_sequence(8, seed=1)[:8], one batch
+CLI_STREAM_M = 4         # the CLI's streamed route: range 1024, 64 blocks
+MESH_N = 128             # [mesh] (b), (d): range 512 (m = 4, 64 blocks)
+MESH_M = 4
+MESH_BATCH = 4           # 8 betas of random_beta_sequence(4, seed=1): two
+                         # beta batches
+MESH_RTOL = 1e-5         # a mesh's sub-spectra against the single card's
+MESH_EXACT_RTOL = 1e-6   # exact round-robin against the exact streamed run
 STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
 STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
 STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
@@ -1136,7 +1170,7 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"{st['escalated_blocks']}, uncertified "
           f"{st['uncertified_cells']}", flush=True)
     rows, starts, counts_b, pad, ext_box, margin_phys = cand_cap.results[0]
-    sweep_all = sweep.combine_all()  # the [cli] phase's reference
+    rec["sweep_a"], rec["st_a"] = sweep, st  # the [mesh] phase's references
     del sweep, cand_cap
     torch.cuda.empty_cache()
 
@@ -1324,7 +1358,8 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
     _check(np.array_equal(spec_f.Nsample[:n], spec_exact.Nsample[:n]),
            "fast streamed Nsample differs")
     _check(err_f <= NN_RTOL, f"fast streamed Psum rel err {err_f:.3e}")
-    del spec_c, spec_f
+    rec["spec_c"] = spec_c  # the [mesh] phase's exact reference
+    del spec_f
     # K2 and K4 (open box, padding rows masked) on one exact block of (c)
     _exact_block_checks(torch, rs, nn_mod, nn_window, particles, rec)
     torch.cuda.empty_cache()
@@ -1458,7 +1493,7 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"{host_s:.1f} s on the host, overlapping (c)-(e)); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     rec["launches"] = {"a": launches_a, "c": launches_c}
-    rec["sweep_all"] = sweep_all
+    rec["small"], rec["void"] = small, void
     return rec
 
 
@@ -1507,12 +1542,12 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
     routes += [("(b) fused", readme, (FOLD_M, N_GRID)),
                ("(c) resume", readme, (FOLD_M, N_GRID)),
                ("(d) crash-resume", readme, (FOLD_M, N_GRID)),
-               ("(e) streamed", ["-N", str(STREAM_N * STREAM_M), "-M",
+               ("(e) streamed", ["-N", str(STREAM_N * CLI_STREAM_M), "-M",
                                  str(STREAM_N), "--method", "nn",
                                  "--quantity", "velocity", "--betas",
                                  str(STREAM_BETAS), "--seed", "1",
                                  "--beta-batch", str(STREAM_BETAS)],
-                (STREAM_M, STREAM_N))]
+                (CLI_STREAM_M, STREAM_N))]
 
     # plans only, before any route, on empty calibrations
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
@@ -1659,7 +1694,17 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
             line += (f"; Pk.txt byte-identical to (b)'s, {n_done} betas "
                      f"done, none recomputed")
         else:
-            err = same_as(got, refs["streamed"], CLI_RTOL, name)
+            # the call the route wraps, made directly: the same betas
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = vt.streamed_folded_sweep(
+                particles, STREAM_N, CLI_STREAM_M, quantity="velocity",
+                method="nn", beta_sequence=vt.random_beta_sequence(
+                    CLI_STREAM_M, seed=1)[:STREAM_BETAS],
+                beta_batch=STREAM_BETAS).combine_all()
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t0
+            err = same_as(got, ref, CLI_RTOL, name)
             full = pk(out, "Pk_full.txt")
             n_done = len(open(os.path.join(out, "betas_done.txt"))
                          .readlines())
@@ -1668,8 +1713,10 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
             _check(n_done == STREAM_BETAS and np.isfinite(full).all()
                    and full[0, 3] > 0, f"{name}: {n_done} betas, "
                    f"Pk_full.txt finite {np.isfinite(full).all()}")
-            line += (f"; Pk.txt against the sum of [streamed] (a)'s "
-                     f"{STREAM_BETAS} sub-spectra: Nsample equal, Psum max "
+            line += (f"; Pk.txt against the sum of the {STREAM_BETAS} "
+                     f"sub-spectra of one direct streamed_folded_sweep("
+                     f"particles, {STREAM_N}, {CLI_STREAM_M}) ({direct_s:.4f}"
+                     f" s): Nsample equal, Psum max "
                      f"rel err {err:.3e} (gate {CLI_RTOL}); certificate "
                      f"{ {k: st[k] for k in ('suspect_cells', 'escalated_blocks', 'uncertified_cells')} }; "
                      f"Pk_full.txt {full.shape[0]} bins from k "
@@ -1682,6 +1729,223 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
     work.cleanup()
     print(f"[cli] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
+    """[mesh]: the block-parallel streamed sweep over a mesh (module
+    docstring, phase 15), held to the single-card runs of [streamed].
+    Returns the launches of its main run (a) and of the exact
+    round-robin run (c)."""
+    import socket
+
+    from vpower_tpu_torch.parallel import (distributed_streamed_sweep,
+                                           make_mesh, multihost)
+
+    sorted_scatter, nn_sweep, nn_window, nn_index_sweep = kernel_modules
+    dev = particles.pos.device
+    t_phase = time.perf_counter()
+    gib = 2**30
+
+    def zero_counts():
+        for mod in kernel_modules:
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        return {"sorted_scatter": sorted_scatter.LAUNCHES,
+                "nn_sweep": nn_sweep.LAUNCHES,
+                "window_sweep": nn_window.LAUNCHES,
+                "nn_index_sweep": nn_index_sweep.LAUNCHES}
+
+    def rel_err(got, ref):
+        sel = ref.Psum > 0
+        return float(np.max(np.abs(got.Psum[sel] - ref.Psum[sel])
+                            / ref.Psum[sel]))
+
+    def same_sweep(got, ref, rtol, what):
+        """Per beta: Nsample bitwise, Psum within ``rtol``."""
+        _check(len(got) == len(ref), f"{what}: {len(got)} sub-spectra, not "
+               f"{len(ref)}")
+        err = 0.0
+        for a, b in zip(got, ref):
+            _check(tuple(a.beta) == tuple(b.beta), f"{what}: beta {a.beta} "
+                   f"where {b.beta} was")
+            _check(np.array_equal(a.Nsample, b.Nsample),
+                   f"{what}: beta {a.beta} Nsample differs")
+            _check(np.isfinite(a.Psum).all(), f"{what}: Psum not finite")
+            err = max(err, rel_err(a, b))
+        _check(err <= rtol, f"{what}: Psum max rel err {err:.3e} > {rtol}")
+        return err
+
+    # ---- (a) range 2048, full width and depth, through two entries ----
+    st_ref = stream["st_a"]
+    _check(st_ref["suspect_cells"] == 0,
+           f"[streamed] (a) reported {st_ref['suspect_cells']} suspect "
+           f"cells: the uncached mesh counts them without escalating, so "
+           f"(a) and the mesh would differ by design")
+    ref_a = stream["sweep_a"]
+    betas = np.array([s.beta for s in ref_a], np.int64)
+    mesh2 = make_mesh(devices=[dev, dev])
+    st = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / gib
+    zero_counts()
+    t0 = time.perf_counter()
+    sweep = distributed_streamed_sweep(
+        particles, STREAM_N, STREAM_M, mesh2, quantity="velocity",
+        method="nn", beta_sequence=betas, beta_batch=STREAM_BETAS,
+        stage_times=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_a = counts()
+    peak = torch.cuda.max_memory_allocated() / gib
+    n_blocks = STREAM_M**3
+    _check(st["suspect_cells"] == 0 and st["uncertified_cells"] == 0,
+           f"mesh (a) certificate {st}")
+    _check(launches_a["sorted_scatter"] >= n_blocks,
+           "mesh (a): fewer K1 launches than blocks")
+    _check(launches_a["nn_sweep"] >= 2 * n_blocks,
+           "mesh (a): fewer than two K2 launches a block")
+    err_a = same_sweep(sweep, ref_a, MESH_RTOL, "mesh (a)")
+    print(f"[mesh] (a) distributed_streamed_sweep(particles, {STREAM_N}, "
+          f"{STREAM_M}, make_mesh(devices=[{dev}, {dev}]), method='nn', "
+          f"the {len(betas)} betas of [streamed] (a), beta_batch="
+          f"{STREAM_BETAS}): range {STREAM_N * STREAM_M}, {n_blocks} blocks, "
+          f"{n_blocks // mesh2.size} on each of {mesh2.size} entries (one "
+          f"card: correctness only, no speed-up from more cards), value "
+          f"cache off by the auto rule; wall {wall:.3f} s on {smi}; "
+          f"stage_times {st}; peak memory {peak:.2f} GiB ({held:.2f} GiB "
+          f"held before the run); launches K1 "
+          f"{launches_a['sorted_scatter']}, K2 {launches_a['nn_sweep']}, K4 "
+          f"{launches_a['window_sweep']}, K3 "
+          f"{launches_a['nn_index_sweep']}; against [streamed] (a): Nsample "
+          f"bitwise, Psum max rel err {err_a:.3e} (gate {MESH_RTOL})",
+          flush=True)
+    del sweep
+    torch.cuda.empty_cache()
+
+    # ---- (b) the value cache and escalation: a void at range 512 ------
+    void = stream["void"]
+    betas_b = vt.random_beta_sequence(MESH_M, seed=1)[:STREAM_BETAS]
+    kw = dict(quantity="velocity", method="nn", beta_sequence=betas_b,
+              beta_batch=MESH_BATCH)
+    st_m, st_1 = {}, {}
+    t0 = time.perf_counter()
+    sw_m = distributed_streamed_sweep(void, MESH_N, MESH_M, make_mesh(),
+                                      stage_times=st_m, **kw)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    sw_1 = vt.streamed_folded_sweep(void, MESH_N, MESH_M, stage_times=st_1,
+                                    **kw)
+    cert = ("suspect_cells", "escalated_blocks", "uncertified_cells")
+    _check("compute_s" in st_m, "mesh (b): the value cache was off")
+    _check(st_m["escalated_blocks"] >= 1, "mesh (b): no block escalated")
+    _check(st_m["uncertified_cells"] == 0 and st_1["uncertified_cells"] == 0,
+           f"mesh (b): uncertified cells {st_m} {st_1}")
+    for key in ("suspect_cells", "escalated_blocks"):
+        _check(st_m[key] == st_1[key], f"mesh (b): {key} {st_m[key]} on the "
+               f"mesh, {st_1[key]} on the card")
+    err_b = same_sweep(sw_m, sw_1, MESH_RTOL, "mesh (b)")
+    print(f"[mesh] (b) {len(void)} particles with the void of [streamed] "
+          f"(e), distributed_streamed_sweep(void, {MESH_N}, {MESH_M}, "
+          f"make_mesh() = {make_mesh()}, {len(betas_b)} betas, beta_batch "
+          f"{MESH_BATCH}): range {MESH_N * MESH_M}, value cache on by the "
+          f"auto rule, {wall_b:.2f} s, stage_times {st_m}; the single card's "
+          f"certificate { {k: st_1[k] for k in cert} }; Nsample bitwise, "
+          f"Psum max rel err {err_b:.3e} (gate {MESH_RTOL})", flush=True)
+    del sw_m, sw_1
+
+    # ---- (c) exact round-robin over three entries ---------------------
+    # first the dispatch on one small call: every K4 call of the entries
+    # bitwise equal to its plain version
+    n_k4 = []
+
+    def k4_check(args, kwargs, out):
+        plain = nn_window.window_pass_plain(*args, **kwargs)
+        _check(torch.equal(out, plain), f"K4 call {len(n_k4)} of the "
+               f"round-robin check differs from its plain version")
+        n_k4.append(out.device)
+
+    small = stream["small"]
+    margin_rr = STREAM_SMALL_N // 2  # n_ext = 2 n_grid, a multiple of 64
+    with _Capture(nn_window, "window_pass", check=k4_check, record=False):
+        vt.streamed_folded_sweep(small, STREAM_SMALL_N, STREAM_ID_M,
+                                 method="nn", exact=True,
+                                 margin_cells=margin_rr, devices=[dev] * 3,
+                                 beta_batch=8)
+    _check(len(n_k4) >= STREAM_ID_M**3, f"the round-robin check made "
+           f"{len(n_k4)} K4 calls for {STREAM_ID_M**3} blocks")
+    mesh3 = make_mesh(3, shape=(3, 1), devices=[dev] * 3)
+    st_c = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    spec = distributed_streamed_sweep(
+        particles, STREAM_N, STREAM_ID_M, mesh3, quantity="velocity",
+        method="nn", exact=True, stage_times=st_c).combine_all()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = counts()
+    ref_c = stream["spec_c"]
+    n = min(len(spec), len(ref_c))
+    _check(np.array_equal(spec.Nsample[:n], ref_c.Nsample[:n]),
+           "mesh (c): Nsample differs from [streamed] (c)")
+    sel = ref_c.Psum[:n] > 0
+    err_c = float(np.max(np.abs(spec.Psum[:n][sel] - ref_c.Psum[:n][sel])
+                         / ref_c.Psum[:n][sel]))
+    _check(err_c <= MESH_EXACT_RTOL, f"mesh (c): Psum max rel err "
+           f"{err_c:.3e} > {MESH_EXACT_RTOL}")
+    _check(st_c["uncertified_cells"] == 0, f"mesh (c): {st_c}")
+    _check(launches_c["window_sweep"] >= STREAM_ID_M**3,
+           "mesh (c): fewer K4 launches than blocks")
+    print(f"[mesh] (c) round-robin check: streamed_folded_sweep("
+          f"{len(small)} particles, {STREAM_SMALL_N}, {STREAM_ID_M}, "
+          f"exact=True, margin_cells={margin_rr}, devices=[{dev}] * 3): "
+          f"{len(n_k4)} K4 calls on {sorted(set(map(str, n_k4)))}, "
+          f"each bitwise equal to its plain version; "
+          f"distributed_streamed_sweep(particles, {STREAM_N}, {STREAM_ID_M}, "
+          f"a mesh of 3 entries on the card, exact=True): {STREAM_ID_M**3} "
+          f"blocks round-robin, {wall_c:.2f} s, stage_times {st_c}; launches "
+          f"K1 {launches_c['sorted_scatter']}, K2 {launches_c['nn_sweep']}, "
+          f"K4 {launches_c['window_sweep']}; against [streamed] (c): Nsample "
+          f"equal over {n} bins, Psum max rel err {err_c:.3e} (gate "
+          f"{MESH_EXACT_RTOL})", flush=True)
+    del spec
+    torch.cuda.empty_cache()
+
+    # ---- (d) a one-process group on the card (nccl) --------------------
+    kw = dict(quantity="velocity", method="nn", beta_sequence=betas_b,
+              beta_batch=MESH_BATCH)
+    ref_d = distributed_streamed_sweep(particles, MESH_N, MESH_M,
+                                       make_mesh(), **kw)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=1,
+                         process_id=0, device="cuda")
+    backend = torch.distributed.get_backend()
+    gm = multihost.global_mesh()
+    _check(backend == "nccl" and gm.group is not None
+           and gm.devices.shape == (1, 1),
+           f"mesh (d): backend {backend}, mesh {gm}")
+    t0 = time.perf_counter()
+    got_d = distributed_streamed_sweep(particles, MESH_N, MESH_M, gm, **kw)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    _check(len(got_d) == len(ref_d) and all(
+        np.array_equal(a.Psum, b.Psum) and np.array_equal(a.Nsample,
+                                                          b.Nsample)
+        for a, b in zip(got_d, ref_d)),
+        "mesh (d): the one-rank nccl mesh differs from the in-process mesh")
+    print(f"[mesh] (d) multihost.initialize(one process, device='cuda'): "
+          f"backend {backend}, global_mesh() {gm}; "
+          f"distributed_streamed_sweep(particles, {MESH_N}, {MESH_M}, "
+          f"{len(betas_b)} betas, beta_batch {MESH_BATCH}) with an "
+          f"all_reduce a batch: {wall_d:.2f} s, bitwise equal to the "
+          f"in-process one-entry mesh; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"a": launches_a, "c": launches_c}
 
 
 def _k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
@@ -2621,14 +2885,23 @@ def main():
     stream = _streamed_phase(
         torch, vt, particles, smi, spec_x,
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    stream_l, stream_err = stream["launches"], stream["err"]
+    stream_calls = {k: stream[k] for k in ("sorted_scatter", "nn_sweep",
+                                           "window_sweep")}
     torch.cuda.empty_cache()
 
     # ---- 14. the CLI -----------------------------------------------
     cli_l = _cli_phase(
         torch, vt, particles, smi,
-        {"nn": spec_nn, "exact": spec_x, "cic": spec_cic, "fold": spec_fold,
-         "streamed": stream["sweep_all"]},
+        {"nn": spec_nn, "exact": spec_x, "cic": spec_cic, "fold": spec_fold},
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    torch.cuda.empty_cache()
+
+    # ---- 15. the block-parallel sweep over a mesh ------------------
+    mesh_l = _mesh_phase(
+        torch, vt, particles, smi, stream,
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    del stream
     torch.cuda.empty_cache()
 
     def cli_launches(kernel):
@@ -2643,14 +2916,16 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
                 "bound_by": rec["bound"][1], "library_ms": library}
 
-    sa, sc = stream["launches"]["a"], stream["launches"]["c"]
+    sa, sc = stream_l["a"], stream_l["c"]
+    ma, mc = mesh_l["a"], mesh_l["c"]
     k1_entry = entry(
         "sorted_scatter", "vpower_tpu/deposit/mxu_scatter.py:263",
         launches["sorted_scatter"] + f_launches + sph_rec["launches"]
         + sa["sorted_scatter"] + sc["sorted_scatter"]
-        + sum(cli_launches("sorted_scatter").values()),
+        + sum(cli_launches("sorted_scatter").values())
+        + ma["sorted_scatter"] + mc["sorted_scatter"],
         max(k1_err, fold["err"], sph_rec["err"],
-            stream["err"]["sorted_scatter"]),
+            stream_err["sorted_scatter"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
         library=k1_lib_ms)
     k1_entry["launches_by_path"] = {"nn": launches["sorted_scatter"],
@@ -2658,27 +2933,34 @@ def main():
                                     "sph": sph_rec["launches"],
                                     "streamed": sa["sorted_scatter"],
                                     "streamed_exact": sc["sorted_scatter"],
-                                    **cli_launches("sorted_scatter")}
+                                    **cli_launches("sorted_scatter"),
+                                    "mesh": ma["sorted_scatter"],
+                                    "mesh_exact": mc["sorted_scatter"]}
     k1_entry["fold"] = fold["calls"]
     k1_entry["sph"] = [sph_rec["k1"]]
-    k1_entry["streamed"] = stream["sorted_scatter"]
+    k1_entry["streamed"] = stream_calls["sorted_scatter"]
     k2_entry = entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
                      launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"]
-                     + sum(cli_launches("nn_sweep").values()),
-                     max(k2["err"], stream["err"]["nn_sweep"]), k2)
+                     + sum(cli_launches("nn_sweep").values())
+                     + ma["nn_sweep"] + mc["nn_sweep"],
+                     max(k2["err"], stream_err["nn_sweep"]), k2)
     k2_entry["launches_by_path"] = {"nn": launches["nn_sweep"],
                                     "streamed": sa["nn_sweep"],
                                     "streamed_exact": sc["nn_sweep"],
-                                    **cli_launches("nn_sweep")}
-    k2_entry["streamed"] = stream["nn_sweep"]
+                                    **cli_launches("nn_sweep"),
+                                    "mesh": ma["nn_sweep"],
+                                    "mesh_exact": mc["nn_sweep"]}
+    k2_entry["streamed"] = stream_calls["nn_sweep"]
     k4_entry = entry("window_sweep", "vpower_tpu/deposit/nn_window.py:449",
                      x_launches["window_sweep"] + sc["window_sweep"]
-                     + sum(cli_launches("window_sweep").values()),
-                     max(k4["err"], stream["err"]["window_sweep"]), k4)
+                     + sum(cli_launches("window_sweep").values())
+                     + ma["window_sweep"] + mc["window_sweep"],
+                     max(k4["err"], stream_err["window_sweep"]), k4)
     k4_entry["launches_by_path"] = {"exact": x_launches["window_sweep"],
                                     "streamed_exact": sc["window_sweep"],
-                                    **cli_launches("window_sweep")}
-    k4_entry["streamed"] = stream["window_sweep"]
+                                    **cli_launches("window_sweep"),
+                                    "mesh_exact": mc["window_sweep"]}
+    k4_entry["streamed"] = stream_calls["window_sweep"]
     kernels = [
         k1_entry,
         k2_entry,

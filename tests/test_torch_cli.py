@@ -271,12 +271,12 @@ def test_parser_matches_jax_less_compile_cache():
 @pytest.mark.parametrize("argv", [
     ["-N", "16", "--method", "ngp"],                       # unfolded mesh
     FOLDED + ["--method", "ngp"],                          # fused mesh
-    FOLDED + ["--method", "nn", "--quantity", "velocity"],  # streamed mesh
 ])
 def test_cli_multi_gpu_raises(tmp_path, snapshot, monkeypatch, argv):
     """With two cards in sight and no --single-chip, a run that the JAX
-    CLI would put on a mesh raises NotImplementedError naming the
-    multi-GPU slice (ROADMAP item 14): it never quietly runs on one."""
+    CLI would put on its scatter mesh pipelines raises
+    NotImplementedError naming them (ROADMAP item 14b): it never quietly
+    runs on one card."""
     g = torch.Generator().manual_seed(0)
     particles = synthetic_particles(g, 16, jitter=0.4, device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
@@ -286,3 +286,36 @@ def test_cli_multi_gpu_raises(tmp_path, snapshot, monkeypatch, argv):
     out = _out(tmp_path, "out")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         tcli.main(["-i", snapshot, "-o", out, "-f"] + argv)
+
+
+def test_cli_streamed_mesh_matches_single_chip(tmp_path, snapshot,
+                                               monkeypatch):
+    """The canonical folded-velocity NN run on a mesh of 8 CPU entries
+    goes block-parallel through ``distributed_streamed_sweep`` and writes
+    the Pk.txt of the forced single-device run (Nsample equal, Psum
+    within the JAX test's 2e-4)."""
+    from vpower_tpu_torch import parallel as tparallel
+
+    base = FOLDED + ["--method", "nn", "--quantity", "velocity",
+                     "--margin", "8", "--beta-batch", "4"]
+    calls = []
+    orig = tparallel.distributed_streamed_sweep
+
+    def spy(*a, **k):
+        calls.append(a[3])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tparallel, "distributed_streamed_sweep", spy)
+    out_mesh = _out(tmp_path, "mesh")
+    args = tcli.build_parser().parse_args(["-i", snapshot, "-o", out_mesh,
+                                           "-f"] + base)
+    particles = tsnapshot.load_snapshot(snapshot, box_size=args.ltot,
+                                        device="cpu")
+    assert tcli._run_loaded(args, particles, "cpu",
+                            mesh_devices=[torch.device("cpu")] * 8) == 0
+    (mesh,) = calls
+    assert mesh.size == 8
+    out_one = _out(tmp_path, "one")
+    assert _run_port(snapshot, out_one, base + ["--single-chip"]) == 0
+    assert len(calls) == 1
+    _same_pk(_pk(out_mesh), _pk(out_one), 2e-4)

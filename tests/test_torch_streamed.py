@@ -299,9 +299,17 @@ def test_streamed_beta_subset_and_progress():
 
 
 def test_devices_raises_not_implemented():
-    tp, _ = _particles(100, 62)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ts.streamed_folded_sweep(tp, 4, 2, devices=["cpu"])
+    """``devices=``: blocks placed round-robin over the entries give the
+    single-device sweep's spectra (fast and exact NN); a scatter method
+    raises ``ValueError``, as in the JAX package."""
+    tp, _ = _particles(400, 62)
+    for exact in (False, True):
+        kw = dict(margin_cells=2, beta_batch=3, exact=exact)
+        _same_sweep(ts.streamed_folded_sweep(tp, 4, 2, devices=["cpu"] * 3,
+                                             **kw),
+                    ts.streamed_folded_sweep(tp, 4, 2, **kw))
+    with pytest.raises(ValueError, match="round-robin placement is the NN"):
+        ts.streamed_folded_sweep(tp, 4, 2, method="cic", devices=["cpu"])
 
 
 # ---------------------------------------------------------------------- #

@@ -1,8 +1,9 @@
 """Mesh pipelines: the sharded deposit, pencil FFT and binning.
 
 PyTorch counterpart of :mod:`vpower_tpu.parallel.pipeline`, with its
-signatures.  Both entry points belong to the port's multi-GPU slice
-(ROADMAP item 14) and raise ``NotImplementedError`` until it lands; the
+signatures.  Both entry points are the mesh scatter pipelines (the
+pencil FFT and the sharded deposit, ROADMAP item 14b) and raise
+``NotImplementedError`` until they land; the
 single-card pipelines are :func:`vpower_tpu_torch.run.power_spectrum`
 and :func:`vpower_tpu_torch.run.fused_fold_spectrum`.
 """

@@ -17,12 +17,15 @@ Differences by design, as in the JAX package:
   ``betas_done.txt`` are derived from them after every beta (atomic
   rewrite), so an interrupted run resumes by re-running with the same
   output directory and a crash can never double-count a beta;
-* one process drives the card — no mpiexec.
+* one process drives the cards — no mpiexec.
 
 The JAX package's ``--compile-cache`` (a JAX compilation cache) has no
-counterpart.  Several cards are the port's multi-GPU slice (ROADMAP
-item 14): a run that would use them raises ``NotImplementedError``
-instead of quietly running on one.
+counterpart.  With several cards in sight, a folded run on the
+block-streamed pipeline runs block-parallel over a mesh of them
+(:func:`vpower_tpu_torch.parallel.distributed_streamed_sweep`); the
+unfolded and fused routes over a mesh are the mesh scatter pipelines
+(ROADMAP item 14b), which raise ``NotImplementedError`` instead of
+quietly running on one card.
 
 :func:`main` parses the options, checks the output directory and the
 snapshot files, and loads the snapshot (HDF5 through ``h5py``);
@@ -177,10 +180,12 @@ def main(argv=None, *, device="cuda") -> int:
     return _run_loaded(args, particles, device)
 
 
-def _run_loaded(args, particles, device) -> int:
+def _run_loaded(args, particles, device, *, mesh_devices=None) -> int:
     """Everything :func:`main` does after the snapshot load: plan,
     confirm, then the unfolded, fused-fold or block-streamed route that
-    the plan names, with its commit points, resume and low-k splice."""
+    the plan names, with its commit points, resume and low-k splice.
+    ``mesh_devices``: the devices a mesh spans (default: the visible
+    cards when ``device`` is a card, else none)."""
     from ..parallel import make_mesh, plan_run
     from ..parallel.planner import device_hbm_bytes
     from ..spectrum.spectrum import init_beta_space, random_beta_sequence
@@ -189,8 +194,13 @@ def _run_loaded(args, particles, device) -> int:
     done_file = os.path.join(args.output, "betas_done.txt")
 
     device = torch.device(device)
-    n_devices = 1 if (args.single_chip or device.type != "cuda") \
-        else torch.cuda.device_count()
+    if args.single_chip:
+        n_devices = 1
+    elif mesh_devices is not None:
+        n_devices = len(mesh_devices)
+    else:
+        n_devices = torch.cuda.device_count() if device.type == "cuda" \
+            else 1
 
     plan = plan_run(
         n_total=args.ntot,
@@ -251,7 +261,8 @@ def _run_loaded(args, particles, device) -> int:
             _log("interlace/compensate run on the single-chip pipeline "
                  "(the mesh scatter has no window-correction path yet).")
         else:
-            mesh = make_mesh(n_devices, shape=plan.mesh_shape)
+            mesh = make_mesh(n_devices, shape=plan.mesh_shape,
+                             devices=mesh_devices)
 
     if plan.fold_m == 1:
         # Single unfolded spectrum; full_spctrm.npz is the commit point.
@@ -296,9 +307,7 @@ def _run_loaded(args, particles, device) -> int:
 
         # Block-parallel across the mesh whenever blocks divide over the
         # devices (the reference's canonical run WAS the folded-velocity
-        # pipeline across all ranks, parallel_optimized.py:201-495); the
-        # mesh raises until the multi-GPU slice lands, so a multi-card
-        # user never silently gets one card.
+        # pipeline across all ranks, parallel_optimized.py:201-495).
         use_mesh = n_devices > 1 and (
             (args.exact and args.method == "nn")
             or plan.fold_m**3 % n_devices == 0
@@ -312,7 +321,7 @@ def _run_loaded(args, particles, device) -> int:
                      f"each).")
                 distributed_streamed_sweep(
                     particles, plan.n_grid, plan.fold_m,
-                    make_mesh(n_devices),
+                    make_mesh(n_devices, devices=mesh_devices),
                     quantity=args.quantity, method=args.method,
                     beta_sequence=np.asarray(pending, np.int64),
                     beta_batch=args.beta_batch, margin_cells=args.margin,

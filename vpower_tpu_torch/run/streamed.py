@@ -344,12 +344,13 @@ def _round_ext_capped(n_grid: int, margin_cells: int, margin_max: int):
 
 
 def _single_block_rows(particles: Particles, q3: np.ndarray, m: int,
-                       margin_phys: float, pad_quantum: int = 4096):
+                       margin_phys: float, pad_quantum: int = 4096,
+                       device=None):
     """Candidate rows of ONE block at any margin, the escalation path of
     the certificate (rebuilt from all particles: the sorted runs were
-    made for the base margin).  Returns ``(rows (Kpad, 7) f32 on the
-    particles' device, count)``, in ascending particle order, padded to
-    a multiple of ``pad_quantum``."""
+    made for the base margin).  Returns ``(rows (Kpad, 7) f32 on
+    ``device`` (default the particles'), count)``, in ascending particle
+    order, padded to a multiple of ``pad_quantum``."""
     box = float(particles.box_size)
     from ..io import native as _native
 
@@ -375,7 +376,8 @@ def _single_block_rows(particles: Particles, q3: np.ndarray, m: int,
         rows[:k, :3] = rel[inside]
         rows[:k, 3:6] = _np(particles.vel)[inside]
         rows[:k, 6] = _np(particles.density)[inside]
-    return torch.from_numpy(rows).to(particles.pos.device), k
+    return torch.from_numpy(rows).to(
+        particles.pos.device if device is None else device), k
 
 
 # ---------------------------------------------------------------------- #
@@ -460,14 +462,15 @@ def _wrap_exact_cells(particles, q3, m, n_grid, cell_total, quantity,
 
 
 def _escalate_block(particles, q, m, n_grid, base_margin_cells,
-                    margin_max, cell_total, quantity, exact):
+                    margin_max, cell_total, quantity, exact, device=None):
     """Re-run one uncertified block at doubled margins until the
     certificate clears; at the representability cap the remaining
     suspect cells get their TRUE periodic NN by brute force
     (:func:`_wrap_nn_brute`), so every cell ends exact, unless the
     suspect cells x particles work exceeds ``_WRAP_BRUTE_BUDGET``, where
-    the best in-frame attempt stays with a warning.  Returns ``(vals
-    (n_ch, n_grid^3), n_uncertified)``."""
+    the best in-frame attempt stays with a warning.  The block runs on
+    ``device`` (default the particles').  Returns ``(vals (n_ch,
+    n_grid^3), n_uncertified)``."""
     q3 = np.array([q // (m * m), (q // m) % m, q % m], np.int64)
     mc_req = base_margin_cells
     while True:
@@ -479,7 +482,8 @@ def _escalate_block(particles, q, m, n_grid, base_margin_cells,
             if (ne64 - n_grid) // 2 <= margin_max:
                 n_ext2 = ne64
                 mc = (ne64 - n_grid) // 2
-        rows2, k2 = _single_block_rows(particles, q3, m, mc * cell_total)
+        rows2, k2 = _single_block_rows(particles, q3, m, mc * cell_total,
+                                       device=device)
         at_cap = mc_req >= margin_max
         out = _block_values_at(rows2, k2, n_grid, n_ext2, mc, cell_total,
                                quantity, exact, True, want_mask=at_cap)
@@ -494,7 +498,7 @@ def _escalate_block(particles, q, m, n_grid, base_margin_cells,
                                             cell_total, quantity, sus_flat)
                     vals = vals.clone()
                     vals[:, torch.from_numpy(sus_flat).to(vals.device)] = \
-                        fix.T
+                        fix.T.to(vals.device)
                     n_bad = 0
                 else:
                     warnings.warn(
@@ -841,8 +845,15 @@ def streamed_folded_sweep(
     default margin is density-aware (~3 mean spacings) instead of
     ``n_grid // 4``.
 
-    ``devices`` (the JAX package's round-robin placement over several
-    devices) is not ported yet: a list raises ``NotImplementedError``.
+    ``devices``: optional list of devices (a device may repeat) — block
+    q is placed on ``devices[q % ndev]``: its candidate rows are copied
+    there, and its descent, the window sweep's exact passes and any
+    escalation run there, with one folded accumulator per entry summed
+    onto ``devices[0]`` in entry order at the end of each batch.  This
+    is how EXACT mode distributes (the window sweep reads its tier
+    decisions on the host, so blocks run one by one, ``ndev`` of them in
+    flight).  NN only; fast mode distributes through
+    :func:`vpower_tpu_torch.parallel.distributed_streamed_sweep`.
 
     ``progress(batch, n_batches, block, n_blocks)`` is called as blocks
     are dispatched; ``on_spectrum(s)`` with each finished sub-spectrum.
@@ -854,12 +865,6 @@ def streamed_folded_sweep(
     counts ``suspect_cells``, ``escalated_blocks`` and
     ``uncertified_cells`` (0 in any non-degenerate box).
     """
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (round-robin placement of blocks over several "
-            "cards) belongs to the port's multi-GPU slice and is not "
-            "ported yet; call without it to run on the particles' device"
-        )
     if beta_sequence is None:
         beta_sequence = init_beta_space(m)
     betas_np = np.asarray(beta_sequence, np.int32).reshape(-1, 3)
@@ -873,6 +878,16 @@ def streamed_folded_sweep(
     n_bins = int((kmax - kmin) / kmin) + 1
 
     certify = certify and method == "nn"
+    multi = devices is not None and len(devices) >= 1
+    if multi and method != "nn":
+        raise ValueError(
+            "devices= round-robin placement is the NN (gather) path; "
+            "scatter methods distribute via distributed_streamed_sweep"
+        )
+    # block q runs on devices[q % n_dev]; without devices=, on the
+    # particles' device
+    devices = [torch.device(d) for d in devices] if multi else [dev]
+    n_dev = len(devices)
 
     if method == "nn":
         margin_max = (n_total - n_grid) // 2  # representability cap
@@ -899,12 +914,14 @@ def streamed_folded_sweep(
         def block_values(q: int):
             s0 = int(starts[q])
             return _block_values_at(
-                rows_d[s0:s0 + pad], int(counts[q]), n_grid, n_ext,
-                margin_cells, cell_total, quantity, exact, certify)
+                rows_d[s0:s0 + pad].to(devices[q % n_dev]), int(counts[q]),
+                n_grid, n_ext, margin_cells, cell_total, quantity, exact,
+                certify)
 
         def escalate_block(q: int):
             return _escalate_block(particles, q, m, n_grid, margin_cells,
-                                   margin_max, cell_total, quantity, exact)
+                                   margin_max, cell_total, quantity, exact,
+                                   device=devices[q % n_dev])
 
     elif method in ("ngp", "cic", "sph"):
         pos_d = particles.pos
@@ -1059,8 +1076,9 @@ def streamed_folded_sweep(
              "uncertified_cells": 0}
     # chunked block loop: up to 8 blocks a chunk, one matmul accumulate
     # and ONE certificate read per chunk; exact NN (whose window sweep
-    # reads its tier decisions on the host) keeps the per-block loop
-    use_chunks = not (method == "nn" and exact)
+    # reads its tier decisions on the host) and round-robin placement
+    # keep the per-block loop
+    use_chunks = not multi and not (method == "nn" and exact)
     if use_chunks:
         per_block = n_ch * n_grid**3 * 4
         width = per_block * (1.5 if (cache and cache_dtype == np.float16)
@@ -1076,16 +1094,19 @@ def streamed_folded_sweep(
         B = len(batch)
         _tb = time.time()
         shape = (B, n_ch, n_grid**3)
-        acc_re = torch.zeros(shape, dtype=torch.float32, device=dev)
-        acc_im = torch.zeros(shape, dtype=torch.float32, device=dev)
+        # one folded accumulator pair a device entry
+        accs = [(torch.zeros(shape, dtype=torch.float32, device=dv),
+                 torch.zeros(shape, dtype=torch.float32, device=dv))
+                for dv in devices]
+        acc_re, acc_im = accs[0]
 
-        def _s_block(q):
-            """(re, im) of ``s(q, beta)`` over the batch, f32 on the
-            device."""
+        def _s_block(q, device):
+            """(re, im) of ``s(q, beta)`` over the batch, f32 on
+            ``device``."""
             qv = np.array(_block_q3(q, m), np.float64)
             s = np.exp(-2j * np.pi * (batch @ qv) / m) / m**1.5
-            return (_to_device(s.real.astype(np.float32), dev),
-                    _to_device(s.imag.astype(np.float32), dev))
+            return (_to_device(s.real.astype(np.float32), device),
+                    _to_device(s.imag.astype(np.float32), device))
 
         if use_chunks:
             want_lo = bool(cache) and cache_dtype == np.float16
@@ -1155,7 +1176,7 @@ def streamed_folded_sweep(
                     stats["escalated_blocks"] += 1
                     v_esc, left = escalate_block(q)
                     stats["uncertified_cells"] += left
-                    _accumulate(acc_re, acc_im, v_esc, *_s_block(q))
+                    _accumulate(acc_re, acc_im, v_esc, *_s_block(q, dev))
                     if cache and not _cache_has(q):
                         _cache_put(q, v_esc)
                 if cache:
@@ -1220,28 +1241,40 @@ def streamed_folded_sweep(
                         stats["uncertified_cells"] += left
                 if cache and not _cache_has(q):
                     _cache_put(q, vals)
-                _accumulate(acc_re, acc_im, vals, *_s_block(q))
+                k = q % n_dev
+                _accumulate(accs[k][0], accs[k][1], vals,
+                            *_s_block(q, devices[k]))
 
+            # one dispatched block a device ahead of the settle point
+            # (settling reads the certificate on the host)
+            depth = max(1, n_dev)
             pending = deque()
             for q in range(n_blocks):
                 if cache and _cache_has(q):
                     entry = (q, _to_device(
-                        np.asarray(_cache_get(q), np.float32), dev), None)
+                        np.asarray(_cache_get(q), np.float32),
+                        devices[q % n_dev]), None)
                 elif certify:
                     vals, nsus = block_values(q)
                     entry = (q, vals, nsus)
                 else:
                     entry = (q, block_values(q), None)
                 pending.append(entry)
-                if len(pending) > 1:
+                if len(pending) > depth:
                     settle(pending.popleft())
                 if progress is not None:
                     progress(bi, n_batches, q, n_blocks)
             while pending:
                 settle(pending.popleft())
 
+        # the combine: the entries' accumulators summed onto devices[0] in
+        # entry order
+        for k in range(1, n_dev):
+            acc_re.add_(accs[k][0].to(devices[0]))
+            acc_im.add_(accs[k][1].to(devices[0]))
+        del accs
         if stage_times is not None:
-            _sync(dev)
+            _sync(devices[0])
             stage_times["blocks_s"] = round(
                 stage_times.get("blocks_s", 0.0) + time.time() - _tb, 2)
             _tb = time.time()
