@@ -10,12 +10,15 @@ Drives the port's paths through the entry points a user calls
 ``check_conservation``, ``save_field``, ``BrickStore``,
 ``streamed_folded_sweep``, ``streamed_folded_spectrum``, the
 command-line interface ``run/cli.py``, ``make_mesh``,
-``distributed_streamed_sweep`` and ``multihost``) on 10,077,696
-particles and a 512^3 grid: the fast NN, NGP and CIC (the default
-method) velocity spectra, the exact NN spectrum (window sweep), the
-index path, the folded spectrum, the SPH spectrum, the block-streamed
-folded NN velocity spectrum at range 2048, the CLI's routes over them,
-and the block-parallel sweep over a mesh of entries on the one card.  The particles
+``distributed_streamed_sweep``, ``multihost``, ``distributed_spectrum``
+and ``distributed_folded_sweep``) on 10,077,696 particles and a 512^3
+grid: the fast NN, NGP and CIC (the default method) velocity spectra,
+the exact NN spectrum (window sweep), the index path, the folded
+spectrum, the SPH spectrum, the block-streamed folded NN velocity
+spectrum at range 2048, the CLI's routes over them, the block-parallel
+sweep over a mesh of entries on the one card, and the mesh scatter
+pipelines (owner-bucketed K1 deposits, the CIC halo, the pencil FFT)
+over a 2 x 2 mesh of entries on it.  The particles
 are made on the card from a seeded ``torch.Generator`` with the shapes
 of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
 velocity field sampled by a 216^3 lattice jittered by 3 cells.
@@ -145,13 +148,15 @@ is non-zero):
    loads and time, the launches, ``max_memory_reserved``.
 15. mesh: the block-parallel streamed sweep over a ``Mesh`` of entries
    on the one card (correctness only: no speed-up from more cards can
-   show on one).  (a) ``distributed_streamed_sweep(particles, 256, 8,
-   make_mesh(devices=[dev, dev]))``, [streamed] (a)'s 8 betas in one
-   batch, 256 blocks on each entry, the value cache off by the auto
-   rule: each beta's Nsample bitwise and Psum within 1e-5 of [streamed]
-   (a)'s (kept in memory), no suspect cell in either run (the uncached
-   mesh counts suspects without escalating, so a suspect would make the
-   runs differ by design and fails the phase), launches, wall, peak.
+   show on one).  (a) ``distributed_streamed_sweep(particles, 256, 4,
+   make_mesh(devices=[dev, dev]))``, range 1024 (range 2048 runs at full
+   depth in [streamed] (a)), [cli] (e)'s 8 betas in one batch, 32
+   blocks on each entry, the value cache off by the auto rule: each
+   beta's Nsample bitwise and Psum within 1e-5 of the sub-spectra of
+   [cli] (e)'s direct ``streamed_folded_sweep`` call (kept in memory),
+   no suspect cell in either run (the uncached mesh counts suspects
+   without escalating, so a suspect would make the runs differ by
+   design and fails the phase), launches, wall, peak.
    (b) [streamed] (e)'s void particles on ``make_mesh()`` at range 512
    (``n_grid`` 128, m = 4, two beta batches, the cache on by the auto
    rule): escalated blocks and suspect cells equal to the single-card
@@ -162,16 +167,39 @@ is non-zero):
    ``distributed_streamed_sweep(particles, 256, 2, <3 entries>,
    exact=True)`` against [streamed] (c): Nsample equal, Psum within
    1e-6.  (d) ``multihost.initialize`` of one process on a free local
-   port with ``device="cuda"`` (``nccl``), ``global_mesh()``, and (b)'s
-   range-512 call on the base particles, bitwise equal to the in-process
-   one-entry mesh; then ``destroy_process_group()``.
+   port with ``device="cuda"`` (``nccl``), ``global_mesh()``, and
+   ``distributed_streamed_sweep(particles, 128, 2)`` (range 256, 8
+   blocks, all 8 betas in two batches) on the base particles, bitwise
+   equal to the in-process one-entry mesh; then
+   ``destroy_process_group()``.
+16. scatter: the mesh scatter pipelines on ``make_mesh(4, devices=[dev]
+   * 4)``, a 2 x 2 mesh of entries on the one card (correctness only),
+   held to references of earlier phases.  (a) ``distributed_spectrum(
+   particles, 512, mesh, method=...)``, NGP and CIC velocity: K1 once an
+   entry; Nsample bitwise and Psum within 1e-5 of phase 5's single-card
+   spectra, and within the float64 host chains' gates (NGP 1e-6, CIC
+   1e-5); the CIC mass over the four entries within 1e-6.  (b)
+   ``distributed_folded_sweep(particles, 512, mesh, m=2)``, all 8 betas:
+   each beta's Nsample bitwise and Psum within 1e-5 of phase 10's
+   ``fused_fold_full_spectrum`` (captured beta by beta), and the
+   combination; one CIC beta (1, 0, 1) against phase 10's float64 host
+   chain (1e-5).  (c) ``_run_loaded(..., mesh_devices=[dev] * 4)`` on the
+   README run ``-N 1024 -M 512`` and on ``-N 512 --quantity velocity
+   --method cic``: Pk.txt against phase 14's (b) and (a) cic (Nsample
+   equal, Psum within 1e-5); the wall and the host bucketing's share.
+   (d) every K1 call of the first runs of (a) NGP and CIC and of one
+   beta of (b) (four a run, 2.5M rows into 256 x 256 x 512, 20M into the
+   257 x 257 x 512 extended CIC blocks, 6 fold channels) bitwise equal to
+   the plain version on the host; each timed beside its bound and
+   ``zeros(C, n + 1).index_add_``.  (e) (a)'s NGP spectrum on the same
+   mesh carrying a one-process ``nccl`` group, bitwise equal.
 
 The kernel summary is one JSON line: per kernel its launches on the main
 path's run (K1: the NN path's, the fold's, the SPH spectrum's, the
-streamed runs', the CLI's routes (``cli_*``) and the mesh's runs
-(``mesh``, ``mesh_exact``), by path under ``launches_by_path``, its
-fold, SPH and
-streamed calls under ``fold``, ``sph`` and ``streamed``; K2 and K4:
+streamed runs', the CLI's routes (``cli_*``), the mesh's runs
+(``mesh``, ``mesh_exact``) and the scatter phase's (``scatter``), by
+path under ``launches_by_path``, its fold, SPH, streamed and mesh
+scatter calls under ``fold``, ``sph``, ``streamed`` and ``scatter``; K2 and K4:
 also their streamed and mesh launches and their streamed calls), its
 largest error
 against the plain version, its time, the plain version's, the library
@@ -237,12 +265,15 @@ STREAM_N = 256           # the streamed sweep: 256^3 folded grids,
 STREAM_M = 8             # m = 8: range 2048, 512 blocks
 STREAM_BETAS = 8         # random_beta_sequence(8, seed=1)[:8], one batch
 CLI_STREAM_M = 4         # the CLI's streamed route: range 1024, 64 blocks
-MESH_N = 128             # [mesh] (b), (d): range 512 (m = 4, 64 blocks)
+MESH_N = 128             # [mesh] (b): range 512 (m = 4, 64 blocks);
+                         # (d): range 256 (m = 2, 8 blocks)
 MESH_M = 4
 MESH_BATCH = 4           # 8 betas of random_beta_sequence(4, seed=1): two
                          # beta batches
 MESH_RTOL = 1e-5         # a mesh's sub-spectra against the single card's
 MESH_EXACT_RTOL = 1e-6   # exact round-robin against the exact streamed run
+MESH4 = 4                # [scatter]: a 2 x 2 mesh of entries on the card
+MESH_SCATTER_RTOL = 1e-5  # a mesh scatter spectrum against the single card's
 STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
 STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
 STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
@@ -1170,7 +1201,6 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"{st['escalated_blocks']}, uncertified "
           f"{st['uncertified_cells']}", flush=True)
     rows, starts, counts_b, pad, ext_box, margin_phys = cand_cap.results[0]
-    rec["sweep_a"], rec["st_a"] = sweep, st  # the [mesh] phase's references
     del sweep, cand_cap
     torch.cuda.empty_cache()
 
@@ -1500,7 +1530,8 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
 def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
     """[cli]: the command-line interface after the snapshot load
     (``run/cli.py:_run_loaded``, module docstring, phase 14).  Returns
-    the K1, K2 and K4 launches of each route, by route."""
+    the K1, K2 and K4 launches of each route and its Pk.txt rows, both
+    by route."""
     import tempfile
 
     from vpower_tpu_torch import parallel
@@ -1579,7 +1610,7 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
         _check(err <= rtol, f"{what}: Psum rel err {err:.3e} > {rtol}")
         return err
 
-    launches = {}
+    launches, pks = {}, {}
     for i, (name, argv, (fold_m, n_grid)) in enumerate(routes):
         tag = name[:3]
         if tag not in ("(c)", "(d)"):  # (c) and (d) run again in (b)'s
@@ -1664,6 +1695,7 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
                 f"({(held - part_bytes) / gib:.3f} GiB held beside the "
                 f"particles)")
         got = pk(out)
+        pks[name] = got
         if tag == "(a)":
             method = args.method
             ref = refs.get("exact" if args.exact else method)
@@ -1695,15 +1727,19 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
                      f"done, none recomputed")
         else:
             # the call the route wraps, made directly: the same betas
+            # (its sub-spectra and certificate: [mesh] (a)'s references)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ref = vt.streamed_folded_sweep(
+            st_direct = {}
+            sweep_direct = vt.streamed_folded_sweep(
                 particles, STREAM_N, CLI_STREAM_M, quantity="velocity",
                 method="nn", beta_sequence=vt.random_beta_sequence(
                     CLI_STREAM_M, seed=1)[:STREAM_BETAS],
-                beta_batch=STREAM_BETAS).combine_all()
+                beta_batch=STREAM_BETAS, stage_times=st_direct)
+            ref = sweep_direct.combine_all()
             torch.cuda.synchronize()
             direct_s = time.perf_counter() - t0
+            pks["direct sweep"] = (sweep_direct, st_direct)
             err = same_as(got, ref, CLI_RTOL, name)
             full = pk(out, "Pk_full.txt")
             n_done = len(open(os.path.join(out, "betas_done.txt"))
@@ -1728,12 +1764,14 @@ def _cli_phase(torch, vt, particles, smi, refs, kernel_modules):
                    f"{peak / gib:.3f} GiB")
     work.cleanup()
     print(f"[cli] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, pks
 
 
-def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
+def _mesh_phase(torch, vt, particles, smi, stream, direct, kernel_modules):
     """[mesh]: the block-parallel streamed sweep over a mesh (module
-    docstring, phase 15), held to the single-card runs of [streamed].
+    docstring, phase 15), held to the single-card runs of [streamed] and
+    to ``direct``, the sub-spectra and certificate of [cli] (e)'s direct
+    ``streamed_folded_sweep`` call.
     Returns the launches of its main run (a) and of the exact
     round-robin run (c)."""
     import socket
@@ -1777,13 +1815,12 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
         _check(err <= rtol, f"{what}: Psum max rel err {err:.3e} > {rtol}")
         return err
 
-    # ---- (a) range 2048, full width and depth, through two entries ----
-    st_ref = stream["st_a"]
+    # ---- (a) range 1024, full width, through two entries ---------------
+    ref_a, st_ref = direct
     _check(st_ref["suspect_cells"] == 0,
-           f"[streamed] (a) reported {st_ref['suspect_cells']} suspect "
-           f"cells: the uncached mesh counts them without escalating, so "
-           f"(a) and the mesh would differ by design")
-    ref_a = stream["sweep_a"]
+           f"[cli] (e)'s direct sweep reported {st_ref['suspect_cells']} "
+           f"suspect cells: the uncached mesh counts them without "
+           f"escalating, so it and the mesh would differ by design")
     betas = np.array([s.beta for s in ref_a], np.int64)
     mesh2 = make_mesh(devices=[dev, dev])
     st = {}
@@ -1793,14 +1830,14 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
     zero_counts()
     t0 = time.perf_counter()
     sweep = distributed_streamed_sweep(
-        particles, STREAM_N, STREAM_M, mesh2, quantity="velocity",
+        particles, STREAM_N, CLI_STREAM_M, mesh2, quantity="velocity",
         method="nn", beta_sequence=betas, beta_batch=STREAM_BETAS,
         stage_times=st)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_a = counts()
     peak = torch.cuda.max_memory_allocated() / gib
-    n_blocks = STREAM_M**3
+    n_blocks = CLI_STREAM_M**3
     _check(st["suspect_cells"] == 0 and st["uncertified_cells"] == 0,
            f"mesh (a) certificate {st}")
     _check(launches_a["sorted_scatter"] >= n_blocks,
@@ -1809,9 +1846,10 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
            "mesh (a): fewer than two K2 launches a block")
     err_a = same_sweep(sweep, ref_a, MESH_RTOL, "mesh (a)")
     print(f"[mesh] (a) distributed_streamed_sweep(particles, {STREAM_N}, "
-          f"{STREAM_M}, make_mesh(devices=[{dev}, {dev}]), method='nn', "
-          f"the {len(betas)} betas of [streamed] (a), beta_batch="
-          f"{STREAM_BETAS}): range {STREAM_N * STREAM_M}, {n_blocks} blocks, "
+          f"{CLI_STREAM_M}, make_mesh(devices=[{dev}, {dev}]), method='nn', "
+          f"the {len(betas)} betas of [cli] (e), beta_batch="
+          f"{STREAM_BETAS}): range {STREAM_N * CLI_STREAM_M}, {n_blocks} "
+          f"blocks, "
           f"{n_blocks // mesh2.size} on each of {mesh2.size} entries (one "
           f"card: correctness only, no speed-up from more cards), value "
           f"cache off by the auto rule; wall {wall:.3f} s on {smi}; "
@@ -1819,8 +1857,9 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
           f"held before the run); launches K1 "
           f"{launches_a['sorted_scatter']}, K2 {launches_a['nn_sweep']}, K4 "
           f"{launches_a['window_sweep']}, K3 "
-          f"{launches_a['nn_index_sweep']}; against [streamed] (a): Nsample "
-          f"bitwise, Psum max rel err {err_a:.3e} (gate {MESH_RTOL})",
+          f"{launches_a['nn_index_sweep']}; against [cli] (e)'s direct "
+          f"streamed_folded_sweep: Nsample bitwise, Psum max rel err "
+          f"{err_a:.3e} (gate {MESH_RTOL})",
           flush=True)
     del sweep
     torch.cuda.empty_cache()
@@ -1914,9 +1953,10 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
     torch.cuda.empty_cache()
 
     # ---- (d) a one-process group on the card (nccl) --------------------
-    kw = dict(quantity="velocity", method="nn", beta_sequence=betas_b,
+    betas_d = vt.random_beta_sequence(STREAM_ID_M, seed=1)
+    kw = dict(quantity="velocity", method="nn", beta_sequence=betas_d,
               beta_batch=MESH_BATCH)
-    ref_d = distributed_streamed_sweep(particles, MESH_N, MESH_M,
+    ref_d = distributed_streamed_sweep(particles, MESH_N, STREAM_ID_M,
                                        make_mesh(), **kw)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1929,7 +1969,8 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
            and gm.devices.shape == (1, 1),
            f"mesh (d): backend {backend}, mesh {gm}")
     t0 = time.perf_counter()
-    got_d = distributed_streamed_sweep(particles, MESH_N, MESH_M, gm, **kw)
+    got_d = distributed_streamed_sweep(particles, MESH_N, STREAM_ID_M, gm,
+                                       **kw)
     torch.cuda.synchronize()
     wall_d = time.perf_counter() - t0
     torch.distributed.destroy_process_group()
@@ -1940,12 +1981,281 @@ def _mesh_phase(torch, vt, particles, smi, stream, kernel_modules):
         "mesh (d): the one-rank nccl mesh differs from the in-process mesh")
     print(f"[mesh] (d) multihost.initialize(one process, device='cuda'): "
           f"backend {backend}, global_mesh() {gm}; "
-          f"distributed_streamed_sweep(particles, {MESH_N}, {MESH_M}, "
-          f"{len(betas_b)} betas, beta_batch {MESH_BATCH}) with an "
+          f"distributed_streamed_sweep(particles, {MESH_N}, {STREAM_ID_M}, "
+          f"{len(betas_d)} betas, beta_batch {MESH_BATCH}) with an "
           f"all_reduce a batch: {wall_d:.2f} s, bitwise equal to the "
           f"in-process one-entry mesh; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"a": launches_a, "c": launches_c}
+
+
+def _scatter_phase(torch, vt, particles, smi, refs, kernel_modules):
+    """[scatter]: the mesh scatter pipelines over a 2 x 2 mesh of entries
+    on the one card (module docstring, phase 16), held to references
+    that earlier phases computed.  Returns the K1 launches of its runs
+    and the records of the K1 calls it held to the plain version."""
+    import socket
+
+    from vpower_tpu_torch import parallel
+    from vpower_tpu_torch.deposit.sorted_scatter import deposit_sorted_plain
+    from vpower_tpu_torch.parallel import deposit as par_dep
+    from vpower_tpu_torch.parallel import (distributed_folded_sweep,
+                                           distributed_spectrum, make_mesh,
+                                           multihost)
+    from vpower_tpu_torch.parallel import pipeline as par_pipe
+    from vpower_tpu_torch.parallel.mesh import Mesh
+    from vpower_tpu_torch.run import cli
+
+    sorted_scatter = kernel_modules[0]
+    dev = particles.pos.device
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MESH4, devices=[dev] * MESH4)
+    _check(mesh.devices.shape == (2, 2), f"[scatter] mesh {mesh}")
+    launches = {}
+    k1_calls = []
+
+    def zero_counts():
+        for mod in kernel_modules:
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def rel_err(psum, ref):
+        sel = ref > 0
+        return float(np.max(np.abs(psum[sel] - ref[sel]) / ref[sel]))
+
+    def same(spec, ref, rtol, what):
+        """Nsample bitwise and Psum within ``rtol`` of a spectrum."""
+        _check(len(spec) == len(ref) and np.isfinite(spec.Psum).all(),
+               f"{what}: {len(spec)} bins, not {len(ref)}, or not finite")
+        _check(np.array_equal(spec.Nsample, ref.Nsample),
+               f"{what}: Nsample differs")
+        err = rel_err(spec.Psum, ref.Psum)
+        _check(err <= rtol, f"{what}: Psum max rel err {err:.3e} > {rtol}")
+        return err
+
+    def k1_check(tag, limit):
+        """A check of the first ``limit`` K1 calls of a run: bitwise equal
+        to the plain version on the host; each call kept for timing."""
+        def check(args, kwargs, out):
+            if sum(c["tag"] == tag for c in k1_calls) >= limit:
+                return
+            sids, svals, n_cells = args
+            ref = deposit_sorted_plain(sids.cpu(), svals.cpu(), n_cells)
+            _check(torch.equal(out.cpu(), ref), f"[scatter] {tag}: K1 call "
+                   f"{len(k1_calls)} ({tuple(svals.shape)} rows -> "
+                   f"{n_cells} cells) differs from its plain version")
+            k1_calls.append({"tag": tag, "args": (sids, svals, n_cells),
+                             "drop": int((sids >= n_cells).sum()),
+                             "zero": int((svals == 0).all(dim=1).sum())})
+        return check
+
+    # ---- (a) unfolded NGP and CIC velocity spectra at 512^3 ------------
+    specs = {}
+    for method in ("ngp", "cic"):
+        with _Capture(par_dep, "deposit_sorted",
+                      check=k1_check(f"(a) {method}", MESH4),
+                      record=False), \
+                _Capture(par_pipe, "deposit_cic_sharded", keep=True,
+                         record=False) as dep:
+            distributed_spectrum(particles, N_GRID, mesh, method=method)
+        torch.cuda.synchronize()
+        if method == "cic":
+            m_mesh = sum(float(g[3].double().sum()) for g in dep.results[0])
+            m_true = float(particles.mass.double().sum())
+            mass_rel = abs(m_mesh - m_true) / m_true
+            _check(mass_rel <= CIC_MASS_RTOL, f"[scatter] (a) cic: mass on "
+                   f"the mesh rel err {mass_rel:.3e}")
+        del dep
+        torch.cuda.empty_cache()
+        zero_counts()
+        t0 = time.perf_counter()
+        spec = distributed_spectrum(particles, N_GRID, mesh, method=method)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"(a) {method}"] = sorted_scatter.LAUNCHES
+        _check(sorted_scatter.LAUNCHES == MESH4, f"[scatter] (a) {method}: "
+               f"K1 launched {sorted_scatter.LAUNCHES} times, not once an "
+               f"entry")
+        err_card = same(spec, refs[method], MESH_SCATTER_RTOL,
+                        f"[scatter] (a) {method} against the single card")
+        err_host = rel_err(spec.Psum, refs[f"host {method}"])
+        gate = NGP_RTOL if method == "ngp" else CIC_RTOL
+        _check(err_host <= gate, f"[scatter] (a) {method}: Psum rel err "
+               f"{err_host:.3e} against the float64 host chain > {gate}")
+        specs[method] = spec
+        extra = (f"; mass over the 4 entries rel err {mass_rel:.3e} (gate "
+                 f"{CIC_MASS_RTOL})" if method == "cic" else "")
+        print(f"[scatter] (a) distributed_spectrum(particles, {N_GRID}, "
+              f"{mesh}, method={method!r}): wall {wall:.4f} s on {smi} (one "
+              f"card: correctness only); K1 launches {launches[f'(a) {method}']}"
+              f" (one an entry), each of the warm-up's bitwise equal to the "
+              f"plain version on the host; against the single card's "
+              f"spectrum: Nsample bitwise, Psum max rel err {err_card:.3e} "
+              f"(gate {MESH_SCATTER_RTOL}); against the float64 host chain "
+              f"{err_host:.3e} (gate {gate}){extra}", flush=True)
+        torch.cuda.empty_cache()
+
+    # ---- (b) the fused fold: 8 betas of range 1024, one CIC beta -------
+    with _Capture(par_pipe, "deposit_sorted",
+                  check=k1_check("(b) fold ngp", MESH4), record=False):
+        distributed_spectrum(particles, N_GRID, mesh, method="ngp",
+                             quantity="momentum", fold=(FOLD_M, FOLD_BETA))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sweep = distributed_folded_sweep(particles, N_GRID, mesh, m=FOLD_M,
+                                     method="ngp")
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches["(b) sweep"] = sorted_scatter.LAUNCHES
+    _check(sorted_scatter.LAUNCHES == MESH4 * FOLD_M**3, f"[scatter] (b): K1 "
+           f"launched {sorted_scatter.LAUNCHES} times, not once an entry a "
+           f"beta")
+    per_beta = refs["fold betas"]
+    _check(len(sweep) == len(per_beta) == FOLD_M**3, f"[scatter] (b): "
+           f"{len(sweep)} sub-spectra, {len(per_beta)} references")
+    err_b = 0.0
+    for s, (beta, psum_1, nsamp_1) in zip(sweep, per_beta):
+        _check(tuple(s.beta) == tuple(beta), f"[scatter] (b): beta {s.beta} "
+               f"where {beta} was")
+        _check(np.array_equal(s.Nsample, nsamp_1), f"[scatter] (b): beta "
+               f"{s.beta} Nsample differs from the single card's")
+        err_b = max(err_b, rel_err(s.Psum, psum_1))
+    _check(err_b <= MESH_SCATTER_RTOL, f"[scatter] (b): Psum max rel err "
+           f"{err_b:.3e} > {MESH_SCATTER_RTOL}")
+    combined = sweep.combine_all()
+    err_comb = same(combined, refs["fold"], MESH_SCATTER_RTOL,
+                    "[scatter] (b) combined")
+    zero_counts()
+    t0 = time.perf_counter()
+    spec_c = distributed_spectrum(particles, N_GRID, mesh, method="cic",
+                                  quantity="momentum",
+                                  fold=(FOLD_M, FOLD_BETA))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches["(b) cic beta"] = sorted_scatter.LAUNCHES
+    psum_h, nsamp_h = refs["host fold cic"]
+    _check(np.array_equal(spec_c.Nsample, nsamp_h.astype(np.float64)),
+           "[scatter] (b) cic: Nsample differs from the float64 host chain")
+    err_cb = rel_err(spec_c.Psum, psum_h)
+    _check(err_cb <= FOLD_RTOL, f"[scatter] (b) cic: Psum rel err "
+           f"{err_cb:.3e} > {FOLD_RTOL}")
+    print(f"[scatter] (b) distributed_folded_sweep(particles, {N_GRID}, "
+          f"mesh, m={FOLD_M}, method='ngp'): {len(sweep)} betas in "
+          f"{wall_b:.4f} s on {smi}; K1 launches {launches['(b) sweep']} "
+          f"(one an entry a beta; the first beta's bitwise equal to the "
+          f"plain version on the host); beta by beta against [fold]'s "
+          f"fused_fold_full_spectrum(particles, {N_GRID}, {FOLD_M}): Nsample "
+          f"bitwise, Psum max rel err {err_b:.3e}; combined {err_comb:.3e} "
+          f"(gate {MESH_SCATTER_RTOL}); CIC beta {FOLD_BETA}: "
+          f"{wall_c:.4f} s, K1 launches {launches['(b) cic beta']}, Nsample "
+          f"equal to and Psum {err_cb:.3e} from the float64 host chain "
+          f"(gate {FOLD_RTOL})", flush=True)
+    del sweep, combined
+    torch.cuda.empty_cache()
+
+    # ---- (c) the CLI's mesh routes --------------------------------------
+    import tempfile
+
+    from vpower_tpu_torch.parallel import planner
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_scatter_")
+    planner._CALIB_PATH = os.path.join(work.name, "calib.json")
+    routes = [("readme", ["-N", str(N_GRID * FOLD_M), "-M", str(N_GRID)],
+               "(b) fused", FOLD_M**3),
+              ("cic", ["-N", str(N_GRID), "--quantity", "velocity",
+                       "--method", "cic"], "(a) cic", 1)]
+    for name, argv, ref_key, n_calls in routes:
+        out = os.path.join(work.name, name)
+        os.makedirs(out)
+        args = cli.build_parser().parse_args(
+            ["-i", "in-memory", "-o", out, "-f"] + argv)
+        zero_counts()
+        with _Capture(parallel, "distributed_spectrum") as calls, \
+                _Stages(torch, [(par_pipe, "_sharded_inputs")]) as bucket:
+            t0 = time.perf_counter()
+            rc = cli._run_loaded(args, particles, dev,
+                                 mesh_devices=[dev] * MESH4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches[f"(c) {name}"] = sorted_scatter.LAUNCHES
+        _check(rc == 0, f"[scatter] (c) {name}: the CLI returned {rc}")
+        _check(len(calls.calls) == n_calls and all(
+            a[2].size == MESH4 for a, _ in calls.calls),
+            f"[scatter] (c) {name}: {len(calls.calls)} distributed_spectrum "
+            f"calls on the mesh, not {n_calls}")
+        got = np.loadtxt(os.path.join(out, "Pk.txt"))
+        ref = refs["cli"][ref_key]
+        _check(got.shape == ref.shape
+               and np.array_equal(got[:, 3], ref[:, 3]),
+               f"[scatter] (c) {name}: Nsample differs from [cli] {ref_key}")
+        err = rel_err(got[:, 2], ref[:, 2])
+        _check(err <= MESH_SCATTER_RTOL, f"[scatter] (c) {name}: Psum rel "
+               f"err {err:.3e} > {MESH_SCATTER_RTOL}")
+        host_s = sum(sec for _, sec in bucket.times)
+        print(f"[scatter] (c) cli ({' '.join(argv)}) on a mesh of "
+              f"{MESH4} entries on the card: wall {wall:.4f} s, of it "
+              f"{host_s:.4f} s ({host_s / wall:.1%}) in {len(bucket.times)} "
+              f"host bucketings of {len(particles)} particles; "
+              f"{len(calls.calls)} distributed_spectrum calls; K1 launches "
+              f"{launches[f'(c) {name}']}; Pk.txt against [cli] {ref_key}: "
+              f"Nsample equal, Psum max rel err {err:.3e} (gate "
+              f"{MESH_SCATTER_RTOL})", flush=True)
+    work.cleanup()
+
+    # ---- (d) the K1 calls held to the plain version, timed -------------
+    records = []
+    for c in k1_calls:
+        sids, svals, n_cells = c["args"]
+        ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+            sids, svals, n_cells), 5)
+        plain_ms = _time_ms(torch, lambda: deposit_sorted_plain(
+            sids, svals, n_cells), 5)
+        ids64, vals_t = sids.long(), svals.T
+        lib_ms = _time_ms(torch, lambda: torch.zeros(
+            (svals.shape[1], n_cells + 1), device=dev).index_add_(
+                1, ids64, vals_t), 5)
+        bound = _k1_bound(sids, svals, n_cells)
+        records.append({
+            "call": f"{c['tag']}, {svals.shape[0]} rows ({c['zero']} of "
+                    f"zero value, {c['drop']} dropped) x {svals.shape[1]} "
+                    f"-> {n_cells} cells",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms})
+        print(f"[scatter] (d) K1 {records[-1]['call']}: bitwise equal to the "
+              f"plain version on the host; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, zeros(C, n + 1).index_add_ {lib_ms:.3f} "
+              f"ms, bound {bound[0]:.3f} ms ({bound[1]}) on {smi}",
+              flush=True)
+        del ids64, vals_t
+    _check(len(records) == 3 * MESH4, f"[scatter] (d): {len(records)} K1 "
+           f"calls checked, not {3 * MESH4}")
+    del k1_calls
+    torch.cuda.empty_cache()
+
+    # ---- (e) a one-process nccl group -----------------------------------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=1,
+                         process_id=0, device="cuda")
+    backend = torch.distributed.get_backend()
+    gm = Mesh(mesh.devices, mesh.axis_names,
+              group=torch.distributed.group.WORLD)
+    zero_counts()
+    got_e = distributed_spectrum(particles, N_GRID, gm, method="ngp")
+    torch.cuda.synchronize()
+    launches["(e) nccl"] = sorted_scatter.LAUNCHES
+    torch.distributed.destroy_process_group()
+    _check(backend == "nccl", f"[scatter] (e): backend {backend}")
+    _check(np.array_equal(got_e.Psum, specs["ngp"].Psum)
+           and np.array_equal(got_e.Nsample, specs["ngp"].Nsample),
+           "[scatter] (e): the nccl mesh differs from the in-process mesh")
+    print(f"[scatter] (e) the 2 x 2 mesh with a one-process {backend} group "
+          f"(multihost.initialize, device='cuda'): (a)'s NGP spectrum "
+          f"bitwise equal to the in-process mesh's; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, records
 
 
 def _k2_plain(state, seeds, box_size, periodic=True, has_occ=True,
@@ -2782,9 +3092,16 @@ def main():
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    spec_fold = vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M)
+    with _Capture(power_mod, "_cascade_bin", keep=True,
+                  record=False) as fold_bins:
+        spec_fold = vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M)
     torch.cuda.synchronize()
     f_launches = sorted_scatter.LAUNCHES
+    # each beta's (Psum, Nsample): [scatter] (b)'s references
+    fold_betas = [(tuple(int(b) for b in beta), psum.cpu().numpy(),
+                   nsamp.cpu().numpy()) for beta, (psum, nsamp) in
+                  zip(vt.init_beta_space(FOLD_M), fold_bins.results)]
+    del fold_bins
     print(f"[fold] fused_fold_full_spectrum(particles, {N_GRID}, {FOLD_M}) "
           f"warm-up {time.perf_counter() - t0:.2f} s; launches: K1 "
           f"{f_launches}, K2 {nn_sweep.LAUNCHES}, K3 "
@@ -2832,10 +3149,12 @@ def main():
     torch.cuda.empty_cache()
 
     # one beta, NGP and CIC, against float64 host chains
+    fold_host = {}
     for method in ("ngp", "cic"):
         t0 = time.perf_counter()
         psum_h, nsamp_h = _host_fold_binned(pos_h, vel_h, mass_h, N_GRID,
                                             FOLD_M, FOLD_BETA, BOX, method)
+        fold_host[method] = (psum_h, nsamp_h)
         spec = specs_b[method]
         _check(np.array_equal(spec.Nsample, nsamp_h.astype(np.float64)),
                f"fold {method} Nsample differs from the host histogram "
@@ -2891,7 +3210,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 14. the CLI -----------------------------------------------
-    cli_l = _cli_phase(
+    cli_l, cli_pk = _cli_phase(
         torch, vt, particles, smi,
         {"nn": spec_nn, "exact": spec_x, "cic": spec_cic, "fold": spec_fold},
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
@@ -2899,9 +3218,18 @@ def main():
 
     # ---- 15. the block-parallel sweep over a mesh ------------------
     mesh_l = _mesh_phase(
-        torch, vt, particles, smi, stream,
+        torch, vt, particles, smi, stream, cli_pk.pop("direct sweep"),
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
     del stream
+    torch.cuda.empty_cache()
+
+    # ---- 16. the mesh scatter pipelines over a 2 x 2 mesh -----------
+    scatter_l, scatter_calls = _scatter_phase(
+        torch, vt, particles, smi,
+        {"ngp": spec_ngp, "cic": spec_cic, "host ngp": psum_ngp,
+         "host cic": psum_cic, "fold": spec_fold, "fold betas": fold_betas,
+         "host fold cic": fold_host["cic"], "cli": cli_pk},
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
     torch.cuda.empty_cache()
 
     def cli_launches(kernel):
@@ -2923,7 +3251,8 @@ def main():
         launches["sorted_scatter"] + f_launches + sph_rec["launches"]
         + sa["sorted_scatter"] + sc["sorted_scatter"]
         + sum(cli_launches("sorted_scatter").values())
-        + ma["sorted_scatter"] + mc["sorted_scatter"],
+        + ma["sorted_scatter"] + mc["sorted_scatter"]
+        + sum(scatter_l.values()),
         max(k1_err, fold["err"], sph_rec["err"],
             stream_err["sorted_scatter"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
@@ -2935,10 +3264,12 @@ def main():
                                     "streamed_exact": sc["sorted_scatter"],
                                     **cli_launches("sorted_scatter"),
                                     "mesh": ma["sorted_scatter"],
-                                    "mesh_exact": mc["sorted_scatter"]}
+                                    "mesh_exact": mc["sorted_scatter"],
+                                    "scatter": sum(scatter_l.values())}
     k1_entry["fold"] = fold["calls"]
     k1_entry["sph"] = [sph_rec["k1"]]
     k1_entry["streamed"] = stream_calls["sorted_scatter"]
+    k1_entry["scatter"] = scatter_calls
     k2_entry = entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
                      launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"]
                      + sum(cli_launches("nn_sweep").values())

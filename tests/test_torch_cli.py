@@ -4,7 +4,9 @@ the same options; the port's ``main(argv, device="cpu")`` against the
 JAX ``main(argv + ["--single-chip"])`` (the JAX tests run on 8 virtual
 CPU devices).  Then the port's own behaviour, ported from
 ``tests/test_cli.py``: resume, crash-resume, the rejections, the block
-cache, routing by the plan, the parser, and the multi-GPU raise.
+cache, routing by the plan, the parser, and the routes over a mesh of
+CPU entries (the mesh scatter pipelines and the block-parallel streamed
+sweep) against --single-chip.
 
 Tolerances: Nsample bitwise everywhere; Psum to the tolerance of the
 existing parity test of the function each route wraps (named beside
@@ -271,21 +273,44 @@ def test_parser_matches_jax_less_compile_cache():
 @pytest.mark.parametrize("argv", [
     ["-N", "16", "--method", "ngp"],                       # unfolded mesh
     FOLDED + ["--method", "ngp"],                          # fused mesh
+    FOLDED + ["--method", "cic", "--interlace"],           # one card
 ])
-def test_cli_multi_gpu_raises(tmp_path, snapshot, monkeypatch, argv):
-    """With two cards in sight and no --single-chip, a run that the JAX
-    CLI would put on its scatter mesh pipelines raises
-    NotImplementedError naming them (ROADMAP item 14b): it never quietly
-    runs on one card."""
-    g = torch.Generator().manual_seed(0)
-    particles = synthetic_particles(g, 16, jitter=0.4, device="cpu")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    monkeypatch.setattr(tplanner, "device_hbm_bytes", lambda device: 80e9)
-    monkeypatch.setattr(tsnapshot, "load_snapshot",
-                        lambda *a, **k: particles)
-    out = _out(tmp_path, "out")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tcli.main(["-i", snapshot, "-o", out, "-f"] + argv)
+def test_cli_multi_gpu_raises(tmp_path, snapshot, monkeypatch, capsys,
+                              argv):
+    """With a mesh of 8 CPU entries in sight and no --single-chip, the
+    runs the JAX CLI puts on its scatter mesh pipelines raise nothing:
+    the unfolded and fused routes call ``distributed_spectrum`` on the
+    mesh once a beta and write the Pk.txt of the --single-chip run
+    (Nsample equal, Psum within 1e-5); an --interlace run stays on one
+    card (ROADMAP item 14c), with the JAX CLI's log line."""
+    from vpower_tpu_torch import parallel as tparallel
+
+    calls = []
+    orig = tparallel.distributed_spectrum
+
+    def spy(*a, **k):
+        calls.append(a[2])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tparallel, "distributed_spectrum", spy)
+    out_mesh = _out(tmp_path, "mesh")
+    args = tcli.build_parser().parse_args(["-i", snapshot, "-o", out_mesh,
+                                           "-f"] + argv)
+    particles = tsnapshot.load_snapshot(snapshot, box_size=args.ltot,
+                                        device="cpu")
+    assert tcli._run_loaded(args, particles, "cpu",
+                            mesh_devices=[torch.device("cpu")] * 8) == 0
+    on_mesh = "--interlace" not in argv
+    assert len(calls) == (0 if not on_mesh else 1 if argv[1] == "16"
+                          else 8)
+    assert all(mesh.size == 8 and mesh.devices.shape == (4, 2)
+               for mesh in calls)
+    if not on_mesh:
+        assert "interlace/compensate run on the single-chip pipeline" \
+            in capsys.readouterr().out
+    out_one = _out(tmp_path, "one")
+    assert _run_port(snapshot, out_one, argv + ["--single-chip"]) == 0
+    _same_pk(_pk(out_mesh), _pk(out_one), 1e-5)
 
 
 def test_cli_streamed_mesh_matches_single_chip(tmp_path, snapshot,

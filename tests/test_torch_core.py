@@ -131,7 +131,8 @@ def test_import_does_not_import_jax():
             "from vpower_tpu_torch.run import cli, streamed; "
             "from vpower_tpu_torch.utils import checks, profiling; "
             "from vpower_tpu_torch import parallel; "
-            "from vpower_tpu_torch.parallel import planner; "
+            "from vpower_tpu_torch.parallel import deposit, planner; "
+            "from vpower_tpu_torch import fft; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'vpower_tpu' not in sys.modules, 'vpower_tpu imported'; "
             "assert 'h5py' not in sys.modules, 'h5py imported'")

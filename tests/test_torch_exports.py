@@ -1,7 +1,7 @@
 """The port's subpackages export every public name of their JAX twins
 (fault F7): for each of ``run``, ``spectrum``, ``deposit``, ``io``,
-``utils`` and ``parallel``, every name in the JAX ``__all__`` is in the
-port's ``__all__`` and resolves.  The only exceptions are names waiting
+``utils``, ``parallel`` and ``fft``, every name in the JAX ``__all__``
+is in the port's ``__all__`` and resolves.  The only exceptions are names waiting
 for a ROADMAP item, listed here."""
 import importlib
 
@@ -17,7 +17,7 @@ WAITING = {
 
 
 @pytest.mark.parametrize("sub", ["run", "spectrum", "deposit", "io",
-                                 "utils", "parallel"])
+                                 "utils", "parallel", "fft"])
 def test_subpackage_exports_match_jax(sub):
     ref = importlib.import_module(f"vpower_tpu.{sub}")
     got = importlib.import_module(f"vpower_tpu_torch.{sub}")

@@ -11,7 +11,14 @@ repeat a device: several entries on one card, or CPU entries in tests.
 Work placed on a mesh runs entry by entry from one Python loop; what
 stands for ``psum`` sums the entries' partial results onto the first
 entry's device in entry order, then ``all_reduce``s the process-local
-sums over the group (:func:`vpower_tpu_torch.parallel.streamed`).
+sums over the group (:func:`vpower_tpu_torch.parallel.streamed`).  The
+mesh scatter pipelines add two exchanges along one mesh axis, the
+counterparts of ``jax.lax.all_to_all(tiled=True)`` and of the cyclic
+``jax.lax.ppermute``: :func:`_all_to_all` and :func:`_ppermute_next`.
+Between two entries of one process an exchange copies into a buffer of
+the receiver's own (``.to(device)`` alone would alias two entries on one
+device); between processes it is one ``batch_isend_irecv`` over the
+mesh's group.
 """
 from __future__ import annotations
 
@@ -25,13 +32,14 @@ __all__ = ["make_mesh", "mesh_shape_for"]
 
 
 def _multi_gpu_not_ported(what: str):
-    """The error every mesh scatter pipeline raises until ROADMAP item
-    14b lands: a run never quietly falls back to one card."""
+    """The error the mesh scatter pipelines raise for ``interlace`` and
+    ``compensate`` until ROADMAP item 14c lands: a run never quietly
+    falls back to one card."""
     return NotImplementedError(
-        f"{what} runs the mesh scatter pipelines (pencil FFT, sharded "
-        f"deposit), which belong to the port's slice 10b (ROADMAP item "
-        f"14b) and are not ported yet; run on one card (--single-chip on "
-        f"the command line)"
+        f"{what} with interlace or compensate runs the interlaced and "
+        f"compensated mesh pipeline, which belongs to ROADMAP item 14c and "
+        f"is not ported yet; run on one card (--single-chip on the command "
+        f"line, or run.power_spectrum / run.fused_fold_spectrum)"
     )
 
 
@@ -128,3 +136,112 @@ def make_mesh(
             f"{n_devices} of {len(devices)} devices")
     return Mesh(_device_array(list(devices)[: px * py], (px, py)),
                 ("x", "y"))
+
+
+def _local_entries(mesh: Mesh):
+    """``[(flat entry index, device)]`` of this process's entries, in
+    entry (row-major) order: the entries a per-entry list holds."""
+    procs = mesh.process_ids.reshape(-1)
+    me = mesh.process_index
+    devs = mesh.devices.reshape(-1)
+    return [(g, torch.device(devs[g])) for g in range(mesh.size)
+            if procs[g] == me]
+
+
+def _axis_lines(mesh: Mesh, axis: str):
+    """The entries of each line of the mesh along ``axis``: lists of flat
+    entry indices in axis order, one list a line."""
+    a = mesh.axis_names.index(axis)
+    idx = np.moveaxis(np.arange(mesh.size).reshape(mesh.devices.shape),
+                      a, -1)
+    return [list(line) for line in idx.reshape(-1, idx.shape[-1])]
+
+
+def _exchange(mesh: Mesh, moves, send, like: torch.Tensor):
+    """Move tensors between entries.  ``moves`` lists ``(src, dst)`` flat
+    entry pairs in one order that every process shares; ``send(src,
+    dst)`` gives what a local ``src`` sends, each of the shape and dtype
+    of ``like``.  Returns ``{(src, dst): tensor}`` for every local
+    ``dst``: a buffer of its own on its device.  Pairs within this
+    process copy; the others are posted in ``moves`` order as one
+    ``batch_isend_irecv`` over the mesh's group, so the sends from one
+    process to another meet the receives there in the same order."""
+    procs = mesh.process_ids.reshape(-1)
+    devs = mesh.devices.reshape(-1)
+    me = mesh.process_index
+    got, ops, keep = {}, [], []
+    for src, dst in moves:
+        src_here, dst_here = procs[src] == me, procs[dst] == me
+        if dst_here:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device=torch.device(devs[dst]))
+            got[(src, dst)] = buf
+            if src_here:
+                buf.copy_(send(src, dst))
+            else:
+                ops.append(torch.distributed.P2POp(
+                    torch.distributed.irecv, buf, _peer(mesh, procs[src]),
+                    mesh.group))
+        elif src_here:
+            t = send(src, dst).contiguous()
+            keep.append(t)
+            ops.append(torch.distributed.P2POp(
+                torch.distributed.isend, t, _peer(mesh, procs[dst]),
+                mesh.group))
+    if ops:
+        for work in torch.distributed.batch_isend_irecv(ops):
+            work.wait()
+    return got
+
+
+def _peer(mesh: Mesh, rank) -> int:
+    """The global rank of ``rank`` in the mesh's group."""
+    return torch.distributed.get_global_rank(mesh.group, int(rank))
+
+
+def _all_to_all(mesh: Mesh, parts, axis: str, split_axis: int,
+                concat_axis: int):
+    """The tiled ``jax.lax.all_to_all`` along the mesh axis ``axis``:
+    each entry splits its block of ``parts`` (one tensor a local entry,
+    in entry order, all of one shape) into ``n`` equal chunks along
+    ``split_axis``; chunk ``j`` goes to the ``j``-th entry of its line
+    along ``axis``, which concatenates what it receives along
+    ``concat_axis`` in source order.  Returns the received blocks, one a
+    local entry."""
+    local = [g for g, _ in _local_entries(mesh)]
+    part = dict(zip(local, parts))
+    lines = _axis_lines(mesh, axis)
+    n = len(lines[0])
+    shape = list(parts[0].shape)
+    if shape[split_axis] % n:
+        raise ValueError(f"all_to_all over {n} entries: axis {split_axis} "
+                         f"of {tuple(shape)} does not split evenly")
+    c = shape[split_axis] // n
+    pos_in_line = {g: (line, j) for line in lines for j, g in enumerate(line)}
+    moves = [(src, dst) for line in lines for dst in line for src in line]
+
+    def send(src, dst):
+        j = pos_in_line[dst][1]
+        return part[src].narrow(split_axis, j * c, c)
+
+    got = _exchange(mesh, moves, send, parts[0].narrow(split_axis, 0, c))
+    return [torch.cat([got[(src, g)] for src in pos_in_line[g][0]],
+                      dim=concat_axis) for g in local]
+
+
+def _ppermute_next(mesh: Mesh, parts, axis: str):
+    """The cyclic ``+1`` shift along the mesh axis ``axis`` (the
+    ``ppermute`` of ``halo_add``): entry ``i`` of each line sends its
+    tensor of ``parts`` to entry ``(i + 1) % n``; an axis of size 1 sends
+    to itself.  Returns what each local entry received."""
+    local = [g for g, _ in _local_entries(mesh)]
+    part = dict(zip(local, parts))
+    prev = {}
+    moves = []
+    for line in _axis_lines(mesh, axis):
+        for i, src in enumerate(line):
+            dst = line[(i + 1) % len(line)]
+            prev[dst] = src
+            moves.append((src, dst))
+    got = _exchange(mesh, moves, lambda src, dst: part[src], parts[0])
+    return [got[(prev[g], g)] for g in local]

@@ -22,10 +22,11 @@ Differences by design, as in the JAX package:
 The JAX package's ``--compile-cache`` (a JAX compilation cache) has no
 counterpart.  With several cards in sight, a folded run on the
 block-streamed pipeline runs block-parallel over a mesh of them
-(:func:`vpower_tpu_torch.parallel.distributed_streamed_sweep`); the
-unfolded and fused routes over a mesh are the mesh scatter pipelines
-(ROADMAP item 14b), which raise ``NotImplementedError`` instead of
-quietly running on one card.
+(:func:`vpower_tpu_torch.parallel.distributed_streamed_sweep`), and the
+unfolded and fused NGP and CIC routes run the mesh scatter pipelines
+(:func:`vpower_tpu_torch.parallel.distributed_spectrum`, once a beta);
+``--interlace`` and ``--compensate`` runs stay on one card, as in the
+JAX package.
 
 :func:`main` parses the options, checks the output directory and the
 snapshot files, and loads the snapshot (HDF5 through ``h5py``);
