@@ -10,15 +10,16 @@ Drives the port's paths through the entry points a user calls
 ``check_conservation``, ``save_field``, ``BrickStore``,
 ``streamed_folded_sweep``, ``streamed_folded_spectrum``, the
 command-line interface ``run/cli.py``, ``make_mesh``,
-``distributed_streamed_sweep``, ``multihost``, ``distributed_spectrum``
-and ``distributed_folded_sweep``) on 10,077,696 particles and a 512^3
+``distributed_streamed_sweep``, ``multihost``, ``distributed_spectrum``,
+``distributed_folded_sweep`` and the plotting layer ``utils``) on 10,077,696 particles and a 512^3
 grid: the fast NN, NGP and CIC (the default method) velocity spectra,
 the exact NN spectrum (window sweep), the index path, the folded
 spectrum, the SPH spectrum, the block-streamed folded NN velocity
-spectrum at range 2048, the CLI's routes over them, the block-parallel
+spectrum at range 1024, the CLI's routes over them, the block-parallel
 sweep over a mesh of entries on the one card, and the mesh scatter
 pipelines (owner-bucketed K1 deposits, the CIC halo, the pencil FFT)
-over a 2 x 2 mesh of entries on it.  The particles
+over a 2 x 2 mesh of entries on it, plain and interlaced and
+compensated, and the plotting layer.  The particles
 are made on the card from a seeded ``torch.Generator`` with the shapes
 of the JAX package's ``bench.py`` workload: a 256^3 Gaussian random
 velocity field sampled by a 216^3 lattice jittered by 3 cells.
@@ -97,16 +98,17 @@ is non-zero):
    ``BrickStore`` (nbrick 2, n_brick 64, npz) of its bricks written and
    read back on the card, bitwise; the store's streaming fold against
    ``fold_box_field`` within 1e-5.
-13. streamed: (a) ``streamed_folded_sweep(particles, 256, 8,
-   method="nn")``, range 2048, 512 blocks of 256^3 through certified
-   320^3 open-box descents, 8 betas of ``random_beta_sequence(8,
+13. streamed: (a) ``streamed_folded_sweep(particles, 256, 4,
+   method="nn")``, range 1024, 64 blocks of 256^3 through certified
+   320^3 open-box descents, 8 betas of ``random_beta_sequence(4,
    seed=1)`` in one batch, no cache, timed once: wall, stage times, the
    time a block, peak memory, launches; no uncertified cell; each
    beta's Nsample equal to the host's float32 count of its shifted
    lattice (the float64 count's differences printed); the device's
-   idle share over 16 blocks by ``torch.profiler``.  (b) one block of
-   (a) on the card and on the CPU from the same rows, bitwise (the host
-   run overlaps (c)-(e)); its K1 and K2 calls against their plain
+   idle share over 16 blocks by ``torch.profiler``.  (b) block 0 of the
+   range-2048 geometry (m = 8, its candidates built as the sweep builds
+   them) on the card and on the CPU from the same rows, bitwise (the
+   host run overlaps (c)-(e)); its K1 and K2 calls against their plain
    versions, timed beside their bounds; 2^16 of its cells against a
    kd-tree over its candidates (misassignment <= MISS_MAX) and a
    periodic kd-tree over all particles (the true NN is a candidate).
@@ -149,16 +151,16 @@ is non-zero):
 15. mesh: the block-parallel streamed sweep over a ``Mesh`` of entries
    on the one card (correctness only: no speed-up from more cards can
    show on one).  (a) ``distributed_streamed_sweep(particles, 256, 4,
-   make_mesh(devices=[dev, dev]))``, range 1024 (range 2048 runs at full
-   depth in [streamed] (a)), [cli] (e)'s 8 betas in one batch, 32
+   make_mesh(devices=[dev, dev]))``, range 1024 (the depth of [streamed]
+   (a)), [cli] (e)'s 8 betas in one batch, 32
    blocks on each entry, the value cache off by the auto rule: each
    beta's Nsample bitwise and Psum within 1e-5 of the sub-spectra of
    [cli] (e)'s direct ``streamed_folded_sweep`` call (kept in memory),
    no suspect cell in either run (the uncached mesh counts suspects
    without escalating, so a suspect would make the runs differ by
    design and fails the phase), launches, wall, peak.
-   (b) [streamed] (e)'s void particles on ``make_mesh()`` at range 512
-   (``n_grid`` 128, m = 4, two beta batches, the cache on by the auto
+   (b) [streamed] (e)'s void particles on ``make_mesh()`` at range 256
+   (``n_grid`` 128, m = 2, two beta batches, the cache on by the auto
    rule): escalated blocks and suspect cells equal to the single-card
    ``streamed_folded_sweep``'s, none uncertified, Nsample bitwise, Psum
    within 1e-5.  (c) exact round-robin: one small call
@@ -193,13 +195,37 @@ is non-zero):
    the plain version on the host; each timed beside its bound and
    ``zeros(C, n + 1).index_add_``.  (e) (a)'s NGP spectrum on the same
    mesh carrying a one-process ``nccl`` group, bitwise equal.
+17. interlace: the interlaced and compensated branch on the 2 x 2 mesh of
+   entries (correctness only).  (a) ``distributed_folded_sweep(particles,
+   512, mesh, m=2, method="cic", interlace=True, compensate=True)``, all 8
+   betas: 64 K1 launches (2 target sets x 4 entries x 8 betas); each
+   beta's Nsample bitwise and Psum within 1e-5 of the single card's
+   ``fused_fold_full_spectrum`` with the same flags (captured beta by
+   beta; its 16 K1 launches), and the combination.  (b)
+   ``distributed_spectrum(particles, 512, mesh, method="ngp",
+   quantity="momentum", interlace=True, compensate=True)`` against the
+   single card's ``power_spectrum`` with the same flags: Nsample bitwise
+   and Psum within 1e-5 over the common bins.  (c) one CIC beta (1, 0, 1)
+   of a 128^3 grid (range 256) on 1,048,576 particles of the workload
+   against a float64 host chain from the formulas (both sets deposited
+   with float64 phases, complex128 FFTs, ``0.5 (F1 + e^{-i theta} F2)``,
+   the window, a histogram): Psum within 1e-5, Nsample equal to the
+   float32 host count; the ratio to the chain with ``e^{+i theta}``
+   printed.  (d) the four K1 calls of (a)'s shifted set (its first beta)
+   bitwise equal to the plain version on the host, each timed beside its
+   bound and ``zeros(C, n + 1).index_add_``.  (e) ``vpower_tpu_torch.utils``
+   and its five plotting names resolve without importing matplotlib;
+   where matplotlib is installed, ``peek_field`` of a card field and
+   ``peek_spectrum`` render to a temporary PNG.  The phase's time and
+   peak memory.
 
 The kernel summary is one JSON line: per kernel its launches on the main
 path's run (K1: the NN path's, the fold's, the SPH spectrum's, the
 streamed runs', the CLI's routes (``cli_*``), the mesh's runs
-(``mesh``, ``mesh_exact``) and the scatter phase's (``scatter``), by
-path under ``launches_by_path``, its fold, SPH, streamed and mesh
-scatter calls under ``fold``, ``sph``, ``streamed`` and ``scatter``; K2 and K4:
+(``mesh``, ``mesh_exact``), the scatter phase's (``scatter``) and the
+interlaced phase's (``interlace``), by path under ``launches_by_path``,
+its fold, SPH, streamed, mesh scatter and interlaced calls under
+``fold``, ``sph``, ``streamed``, ``scatter`` and ``interlace``; K2 and K4:
 also their streamed and mesh launches and their streamed calls), its
 largest error
 against the plain version, its time, the plain version's, the library
@@ -262,18 +288,30 @@ N_SMALL_LATTICE = 54     # 54^3 = 157,464 particles (same occupancy)
 N_RING = 160             # the n % 64 != 0 route, one particle per cell
 RING_MISS_MAX = 1e-5
 STREAM_N = 256           # the streamed sweep: 256^3 folded grids,
-STREAM_M = 8             # m = 8: range 2048, 512 blocks
-STREAM_BETAS = 8         # random_beta_sequence(8, seed=1)[:8], one batch
+STREAM_M = 4             # m = 4: range 1024, 64 blocks
+STREAM_BLOCK_M = 8       # (b): block 0 of range 2048 (m = 8), 38,633
+                         # rows: the host runs it in ~150 s, where a block
+                         # of range 1024 (8x the rows) takes ~200 s
+STREAM_BETAS = 8         # random_beta_sequence(4, seed=1)[:8], one batch
 CLI_STREAM_M = 4         # the CLI's streamed route: range 1024, 64 blocks
-MESH_N = 128             # [mesh] (b): range 512 (m = 4, 64 blocks);
+MESH_N = 128             # [mesh] (b): range 256 (m = 2, 8 blocks);
                          # (d): range 256 (m = 2, 8 blocks)
-MESH_M = 4
-MESH_BATCH = 4           # 8 betas of random_beta_sequence(4, seed=1): two
+MESH_M = 2
+MESH_BATCH = 4           # 8 betas of random_beta_sequence(2, seed=1): two
                          # beta batches
 MESH_RTOL = 1e-5         # a mesh's sub-spectra against the single card's
 MESH_EXACT_RTOL = 1e-6   # exact round-robin against the exact streamed run
 MESH4 = 4                # [scatter]: a 2 x 2 mesh of entries on the card
 MESH_SCATTER_RTOL = 1e-5  # a mesh scatter spectrum against the single card's
+INTERLACE_N = 128        # [interlace] (c): a 128^3 folded grid, m = 2,
+INTERLACE_P = 1 << 20    # 1,048,576 particles of the workload (a seeded
+                         # subset), against the float64 host chain
+# [interlace] (b): the unfolded flags on the mesh (complex pencils, the
+# phase from the global modes, the window divided out) against the
+# single card's (full-grid fftn, the phase summed from per-axis angles,
+# the window's reciprocal multiplied in, v = p / m then m v): the same
+# formulas rounded in another order, ~1e-7 a mode
+INTERLACE_RTOL = 1e-5
 STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
 STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
 STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
@@ -475,16 +513,16 @@ def _host_cic_power(pos, vel, mass, n_grid, box_size):
         float(msum.sum())
 
 
-def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
-    """float64 folded momentum sub-spectrum of one beta on the host:
+def _host_fold_transforms(pos, vel, mass, n_grid, m, beta, box_size,
+                          method):
+    """float64 transforms of one beta's folded momentum on the host, one
+    channel at a time (a generator of complex128 (n_grid)^3 arrays):
     ``np.bincount`` of the phased momentum ``m v e^{-i theta}``, ``theta
     = 2 pi (g . beta) / Ntot``, at each target's full-resolution cell g
     (NGP: the particle's; CIC: its eight weighted corners), folded onto
-    the (n_grid)^3 grid and divided by m^1.5; complex pocketfft; the
-    modes binned by |K| = |m t + beta| (|k| = 2 pi |K| / L), bin i
-    holding (i + 1/2) <= |K| < (i + 3/2), with ``np.bincount``.  The
+    the (n_grid)^3 grid, not yet normalized; complex pocketfft.  The
     particles are first ordered by cell so that the bincounts walk the
-    grid in order.  Returns ``(Psum, Nsample)``."""
+    grid in order."""
     import scipy.fft
 
     n_total = m * n_grid
@@ -517,8 +555,6 @@ def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
         sin_w.append(-w * np.sin(theta))
         del g, w, theta, f
     flat, cos_w, sin_w = (np.concatenate(x) for x in (flat, cos_w, sin_w))
-    a = (box_size / m / (2 * np.pi)) ** 1.5 / float(n_grid) ** 3 / m**1.5
-    power = np.zeros(n_grid**3)
     z = np.empty(n_grid**3, np.complex128)
     for c in range(3):
         mom_c = np.tile(mom[:, c], len(corners))
@@ -526,14 +562,71 @@ def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
                              minlength=n_grid**3)
         z.imag = np.bincount(flat, weights=sin_w * mom_c,
                              minlength=n_grid**3)
-        fk = scipy.fft.fftn(z.reshape((n_grid,) * 3), overwrite_x=True,
-                            workers=os.cpu_count()).ravel()
+        del mom_c
+        yield scipy.fft.fftn(z.reshape((n_grid,) * 3),
+                             workers=os.cpu_count())
+
+
+def _host_fold_norm(n_grid, m, box_size):
+    """The folded transform's normalization (the grid's box L / m, and
+    the m^-1.5 of the fold)."""
+    return (box_size / m / (2 * np.pi)) ** 1.5 / float(n_grid) ** 3 / m**1.5
+
+
+def _host_fold_binned(pos, vel, mass, n_grid, m, beta, box_size, method):
+    """float64 folded momentum sub-spectrum of one beta on the host
+    (:func:`_host_fold_transforms`), the modes binned by |K| = |m t +
+    beta| (|k| = 2 pi |K| / L), bin i holding (i + 1/2) <= |K| < (i +
+    3/2), with ``np.bincount``.  Returns ``(Psum, Nsample)``."""
+    a = _host_fold_norm(n_grid, m, box_size)
+    power = np.zeros(n_grid**3)
+    for fk in _host_fold_transforms(pos, vel, mass, n_grid, m, beta,
+                                    box_size, method):
+        fk = fk.ravel()
         power += (0.5 * a * a) * (fk.real**2 + fk.imag**2)
-    del flat, cos_w, sin_w, mom_c, z, fk
+        del fk
     idx, keep, nsamp = _host_fold_nsamp(n_grid, m, beta, box_size)
     psum = np.bincount(idx[keep], weights=power[keep],
                        minlength=len(nsamp))
     return psum, nsamp
+
+
+def _host_interlaced_binned(pos, vel, mass, n_grid, m, beta, box_size,
+                            method):
+    """float64 interlaced, compensated folded momentum sub-spectrum of
+    one beta on the host, from the formulas: the transforms of the
+    particles and of the particles shifted by half a full-resolution
+    cell (float64, periodic wrap), each by :func:`_host_fold_transforms`;
+    ``0.5 (F1 + e^{-i theta} F2)`` with ``theta = pi (Kx + Ky + Kz) /
+    Ntot`` on the global modes ``K = m t + beta``; ``P = 0.5 a^2 sum_c
+    |F|^2`` divided by the window ``prod_a sinc(pi K_a / Ntot)^order``
+    squared (order 1 NGP, 2 CIC); binned on the float32 mode counts of
+    ``bin_grid_local``.  Returns ``(Psum, Nsample, Psum_aligned)``:
+    the last with ``e^{+i theta}``, the rotation that lines a mode of
+    the shifted deposit up with the unshifted one's."""
+    n_total = m * n_grid
+    shifted = (pos + box_size / n_total / 2.0) % box_size
+    t = np.fft.fftfreq(n_grid, 1.0 / n_grid)
+    kk = [m * t + b for b in beta]
+    theta = (np.pi / n_total) * (kk[0][:, None, None] + kk[1][None, :, None]
+                                 + kk[2][None, None, :])
+    order = {"ngp": 1, "cic": 2}[method]
+    s = [np.sinc(k / n_total) ** order for k in kk]
+    w = s[0][:, None, None] * s[1][None, :, None] * s[2][None, None, :]
+    a = _host_fold_norm(n_grid, m, box_size)
+    power = [np.zeros((n_grid,) * 3), np.zeros((n_grid,) * 3)]
+    for f1, f2 in zip(
+            _host_fold_transforms(pos, vel, mass, n_grid, m, beta, box_size,
+                                  method),
+            _host_fold_transforms(shifted, vel, mass, n_grid, m, beta,
+                                  box_size, method)):
+        for p, sign in zip(power, (-1.0, 1.0)):
+            fk = 0.5 * (f1 + np.exp(sign * 1j * theta) * f2)
+            p += (0.5 * a * a) * (fk.real**2 + fk.imag**2)
+    idx, keep, nsamp = _host_fold_nsamp(n_grid, m, beta, box_size, f32=True)
+    psum = [np.bincount(idx[keep], weights=(p / (w * w)).ravel()[keep],
+                        minlength=len(nsamp)) for p in power]
+    return psum[0], nsamp, psum[1]
 
 
 def _host_fold_nsamp(n_grid, m, beta, box_size, f32=False):
@@ -1132,7 +1225,7 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
                 "window_sweep": nn_window.LAUNCHES,
                 "nn_index_sweep": nn_index_sweep.LAUNCHES}
 
-    # ---- (a) the canonical run: range 2048, 512 blocks, 8 betas ------
+    # ---- (a) the canonical run: range 1024, 64 blocks, 8 betas -------
     betas = vt.random_beta_sequence(STREAM_M, seed=1)[:STREAM_BETAS]
     ticks = []
 
@@ -1145,14 +1238,13 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
     zero_counts()
-    with _Capture(rs, "_block_candidates_device", keep=True) as cand_cap:
-        t0 = time.perf_counter()
-        sweep = vt.streamed_folded_sweep(
-            particles, STREAM_N, STREAM_M, quantity="velocity", method="nn",
-            beta_sequence=betas, beta_batch=STREAM_BETAS, cache=False,
-            stage_times=st, progress=progress)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep = vt.streamed_folded_sweep(
+        particles, STREAM_N, STREAM_M, quantity="velocity", method="nn",
+        beta_sequence=betas, beta_batch=STREAM_BETAS, cache=False,
+        stage_times=st, progress=progress)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches_a = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_blocks = STREAM_M**3
@@ -1200,8 +1292,7 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
           f"certificate: suspect {st['suspect_cells']}, escalated "
           f"{st['escalated_blocks']}, uncertified "
           f"{st['uncertified_cells']}", flush=True)
-    rows, starts, counts_b, pad, ext_box, margin_phys = cand_cap.results[0]
-    del sweep, cand_cap
+    del sweep
     torch.cuda.empty_cache()
 
     # the device's idle share over 16 blocks of (a)
@@ -1221,12 +1312,16 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
              f"s window)"), flush=True)
     torch.cuda.empty_cache()
 
-    # ---- (b) one block of (a): card against the host, bitwise --------
+    # ---- (b) one block of range 2048: card against the host, bitwise -
+    n_total = STREAM_N * STREAM_BLOCK_M
+    cell_total = box / n_total
     want = rs._default_margin_cells(STREAM_N, n_total, n_p)
     n_ext, mc = rs._round_ext_capped(STREAM_N, want,
                                      (n_total - STREAM_N) // 2)
+    rows, starts, counts_b, pad, _, _ = rs._block_candidates_device(
+        particles, STREAM_BLOCK_M, STREAM_N, mc)
     q = 0
-    q3 = np.array(rs._block_q3(q, STREAM_M))
+    q3 = np.array(rs._block_q3(q, STREAM_BLOCK_M))
     s0, cnt = int(starts[q]), int(counts_b[q])
     cand = rows[s0:s0 + pad]
     with _Capture(nn_mod, "sweep_tiles_vals") as k2_cap, \
@@ -1516,8 +1611,9 @@ def _streamed_phase(torch, vt, particles, smi, spec_exact, kernel_modules):
     _check(torch.equal(vals_c, vals_h) and nsus_c == int(nsus_h),
            f"block {q}: card values or suspect count differ from the CPU "
            f"run on the same rows")
-    print(f"[streamed] (b) block {q} of (a): {cnt} candidate rows in a "
-          f"{pad}-row window, margin {mc} cells, n_ext {n_ext}: values "
+    print(f"[streamed] (b) block {q} of range {n_total}: {cnt} candidate "
+          f"rows in a {pad}-row window, margin {mc} cells, n_ext {n_ext}: "
+          f"values "
           f"({tuple(vals_c.shape)}) and suspect count ({nsus_c}) bitwise "
           f"equal to the CPU run on the same rows (the plain route, "
           f"{host_s:.1f} s on the host, overlapping (c)-(e)); phase "
@@ -1864,7 +1960,7 @@ def _mesh_phase(torch, vt, particles, smi, stream, direct, kernel_modules):
     del sweep
     torch.cuda.empty_cache()
 
-    # ---- (b) the value cache and escalation: a void at range 512 ------
+    # ---- (b) the value cache and escalation: a void at range 256 ------
     void = stream["void"]
     betas_b = vt.random_beta_sequence(MESH_M, seed=1)[:STREAM_BETAS]
     kw = dict(quantity="velocity", method="nn", beta_sequence=betas_b,
@@ -2255,6 +2351,248 @@ def _scatter_phase(torch, vt, particles, smi, refs, kernel_modules):
           f"(multihost.initialize, device='cuda'): (a)'s NGP spectrum "
           f"bitwise equal to the in-process mesh's; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, records
+
+
+def _interlace_phase(torch, vt, particles, smi, kernel_modules):
+    """[interlace]: the interlaced and compensated branch of the mesh
+    scatter pipelines on a 2 x 2 mesh of entries on the one card (module
+    docstring, phase 17), held to the single card's pipelines and to a
+    float64 host chain.  Returns the K1 launches of its runs and the
+    records of the K1 calls it held to the plain version."""
+    import importlib.util
+    import tempfile
+
+    from vpower_tpu_torch.deposit.sorted_scatter import deposit_sorted_plain
+    from vpower_tpu_torch.parallel import (distributed_folded_sweep,
+                                           distributed_spectrum, make_mesh)
+    from vpower_tpu_torch.parallel import pipeline as par_pipe
+    from vpower_tpu_torch.spectrum import power as power_mod
+
+    sorted_scatter = kernel_modules[0]
+    dev = particles.pos.device
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    mesh = make_mesh(MESH4, devices=[dev] * MESH4)
+    flags = dict(interlace=True, compensate=True)
+    launches = {}
+
+    def zero_counts():
+        for mod in kernel_modules:
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def rel_err(psum, ref):
+        sel = ref > 0
+        return float(np.max(np.abs(psum[sel] - ref[sel]) / ref[sel]))
+
+    # ---- (a) the interlaced, compensated CIC fold, 8 betas -------------
+    zero_counts()
+    t0 = time.perf_counter()
+    with _Capture(power_mod, "_cascade_bin", keep=True,
+                  record=False) as per_beta:
+        single = vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M,
+                                             method="cic", **flags)
+        torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    launches["(a) single card"] = sorted_scatter.LAUNCHES
+    _check(sorted_scatter.LAUNCHES == 2 * FOLD_M**3, f"[interlace] (a): the "
+           f"single card launched K1 {sorted_scatter.LAUNCHES} times, not "
+           f"twice a beta")
+    ref = [(p.cpu().numpy(), n.cpu().numpy()) for p, n in per_beta.results]
+    del per_beta
+    torch.cuda.empty_cache()
+    second = []   # the first beta's K1 calls of the shifted set: (d)
+
+    def keep_second(args, kwargs, out):
+        keep_second.n += 1
+        if MESH4 < keep_second.n <= 2 * MESH4:
+            second.append((args, out))
+
+    keep_second.n = 0
+    zero_counts()
+    with _Capture(par_pipe, "deposit_sorted", check=keep_second,
+                  record=False):
+        t0 = time.perf_counter()
+        sweep = distributed_folded_sweep(particles, N_GRID, mesh, m=FOLD_M,
+                                         method="cic", **flags)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+    launches["(a) mesh"] = sorted_scatter.LAUNCHES
+    _check(sorted_scatter.LAUNCHES == 2 * MESH4 * FOLD_M**3, f"[interlace] "
+           f"(a): K1 launched {sorted_scatter.LAUNCHES} times, not "
+           f"{2 * MESH4 * FOLD_M**3} (2 sets x {MESH4} entries x "
+           f"{FOLD_M**3} betas)")
+    _check(len(sweep) == len(ref) == FOLD_M**3, f"[interlace] (a): "
+           f"{len(sweep)} sub-spectra, {len(ref)} references")
+    err_a = 0.0
+    for s, beta, (psum_1, nsamp_1) in zip(sweep, vt.init_beta_space(FOLD_M),
+                                           ref):
+        _check(tuple(s.beta) == tuple(int(b) for b in beta)
+               and np.isfinite(s.Psum).all(), f"[interlace] (a): beta "
+               f"{s.beta} where {tuple(beta)} was, or Psum not finite")
+        _check(np.array_equal(s.Nsample, nsamp_1), f"[interlace] (a): beta "
+               f"{s.beta} Nsample differs from the single card's")
+        err_a = max(err_a, rel_err(s.Psum, psum_1))
+    _check(err_a <= MESH_SCATTER_RTOL, f"[interlace] (a): Psum max rel err "
+           f"{err_a:.3e} > {MESH_SCATTER_RTOL}")
+    combined = sweep.combine_all()
+    _check(np.array_equal(combined.Nsample, single.Nsample),
+           "[interlace] (a) combined: Nsample differs")
+    err_comb = rel_err(combined.Psum, single.Psum)
+    _check(err_comb <= MESH_SCATTER_RTOL, f"[interlace] (a) combined: Psum "
+           f"rel err {err_comb:.3e}")
+    rows = [tuple(a[1].shape) for a, _ in second]
+    print(f"[interlace] (a) distributed_folded_sweep(particles, {N_GRID}, "
+          f"mesh, m={FOLD_M}, method='cic', interlace=True, compensate=True)"
+          f" on {mesh}: {len(sweep)} betas in {wall_a:.4f} s on {smi} (one "
+          f"card: correctness only); K1 launches {launches['(a) mesh']} (2 "
+          f"sets x {MESH4} entries x {FOLD_M**3} betas); the single card's "
+          f"fused_fold_full_spectrum(particles, {N_GRID}, {FOLD_M}, "
+          f"method='cic', interlace=True, compensate=True), this path's "
+          f"first run on the card: {wall_1:.4f} s, K1 launches "
+          f"{launches['(a) single card']}; beta by beta: Nsample bitwise, "
+          f"Psum max rel err {err_a:.3e}; combined {err_comb:.3e} (gate "
+          f"{MESH_SCATTER_RTOL}); the shifted set's rows an entry {rows}",
+          flush=True)
+    del sweep, combined, single, ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) the unfolded flags (NGP momentum) -------------------------
+    kw = dict(method="ngp", quantity="momentum", **flags)
+    zero_counts()
+    t0 = time.perf_counter()
+    spec_1 = vt.power_spectrum(particles, N_GRID, **kw)
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    launches["(b) single card"] = sorted_scatter.LAUNCHES
+    zero_counts()
+    t0 = time.perf_counter()
+    spec_b = distributed_spectrum(particles, N_GRID, mesh, **kw)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches["(b) mesh"] = sorted_scatter.LAUNCHES
+    _check(sorted_scatter.LAUNCHES == 2 * MESH4, f"[interlace] (b): K1 "
+           f"launched {sorted_scatter.LAUNCHES} times, not {2 * MESH4}")
+    n = min(len(spec_b), len(spec_1))
+    _check(n > 0 and np.isfinite(spec_b.Psum).all()
+           and np.array_equal(spec_b.Nsample[:n], spec_1.Nsample[:n]),
+           "[interlace] (b): Nsample differs from the single card's or "
+           "Psum not finite")
+    err_b = rel_err(spec_b.Psum[:n], spec_1.Psum[:n])
+    _check(err_b <= INTERLACE_RTOL, f"[interlace] (b): Psum max rel err "
+           f"{err_b:.3e} > {INTERLACE_RTOL}")
+    print(f"[interlace] (b) distributed_spectrum(particles, {N_GRID}, mesh, "
+          f"method='ngp', quantity='momentum', interlace=True, "
+          f"compensate=True): {wall_b:.4f} s on {smi}, K1 launches "
+          f"{launches['(b) mesh']}; the single card's power_spectrum with "
+          f"the same flags (full-grid fftn route): {wall_1:.4f} s, K1 "
+          f"launches {launches['(b) single card']}; over the {n} common "
+          f"bins ({len(spec_b)} and {len(spec_1)}): Nsample bitwise, Psum "
+          f"max rel err {err_b:.3e} (gate {INTERLACE_RTOL})", flush=True)
+    del spec_1, spec_b
+    torch.cuda.empty_cache()
+
+    # ---- (c) one beta against the float64 host chain --------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sub = particles[torch.randperm(len(particles), generator=gen,
+                                   device=dev)[:INTERLACE_P]]
+    zero_counts()
+    t0 = time.perf_counter()
+    spec_c = distributed_spectrum(sub, INTERLACE_N, mesh, method="cic",
+                                  quantity="momentum",
+                                  fold=(FOLD_M, FOLD_BETA), **flags)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches["(c)"] = sorted_scatter.LAUNCHES
+    t0 = time.perf_counter()
+    host = [t.double().cpu().numpy() for t in (sub.pos, sub.vel, sub.mass)]
+    psum_h, nsamp_h, psum_al = _host_interlaced_binned(
+        *host, INTERLACE_N, FOLD_M, FOLD_BETA, BOX, "cic")
+    host_s = time.perf_counter() - t0
+    _check(np.array_equal(spec_c.Nsample, nsamp_h.astype(np.float64)),
+           "[interlace] (c): Nsample differs from the float32 host count")
+    err_c = rel_err(spec_c.Psum, psum_h)
+    _check(err_c <= FOLD_RTOL, f"[interlace] (c): Psum rel err {err_c:.3e} "
+           f"> {FOLD_RTOL} against the float64 host chain")
+    sel = psum_al > 0
+    ratio = spec_c.Psum[sel] / psum_al[sel]
+    print(f"[interlace] (c) distributed_spectrum({INTERLACE_P} particles, "
+          f"{INTERLACE_N}, mesh, method='cic', quantity='momentum', fold="
+          f"({FOLD_M}, {FOLD_BETA}), interlace=True, compensate=True): "
+          f"{wall_c:.4f} s, K1 launches {launches['(c)']}; against the "
+          f"float64 host chain of 0.5 (F1 + e^-i theta F2) over the window "
+          f"squared ({host_s:.1f} s): Nsample equal to the float32 host "
+          f"count, Psum max rel err {err_c:.3e} (gate {FOLD_RTOL}); against "
+          f"the chain with e^+i theta (the rotation that lines the shifted "
+          f"deposit's modes up with the unshifted one's, ROADMAP fault F8) "
+          f"Psum / chain {ratio[0]:.6f} in the first bin, {ratio[-1]:.6f} "
+          f"in the last, {ratio.min():.6f} at least", flush=True)
+
+    # ---- (d) K1 at the shifted set's shapes ----------------------------
+    records = []
+    _check(len(second) == MESH4, f"[interlace] (d): {len(second)} K1 calls "
+           f"of the shifted set kept, not {MESH4}")
+    for (sids, svals, n_cells), out in second:
+        ref_p = deposit_sorted_plain(sids.cpu(), svals.cpu(), n_cells)
+        _check(torch.equal(out.cpu(), ref_p), f"[interlace] (d): K1 "
+               f"({tuple(svals.shape)} rows -> {n_cells} cells) differs "
+               f"from its plain version")
+        ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+            sids, svals, n_cells), 5)
+        plain_ms = _time_ms(torch, lambda: deposit_sorted_plain(
+            sids, svals, n_cells), 5)
+        ids64, vals_t = sids.long(), svals.T
+        lib_ms = _time_ms(torch, lambda: torch.zeros(
+            (svals.shape[1], n_cells + 1), device=dev).index_add_(
+                1, ids64, vals_t), 5)
+        bound = _k1_bound(sids, svals, n_cells)
+        records.append({
+            "call": f"(a) shifted set, {svals.shape[0]} rows ("
+                    f"{int((sids >= n_cells).sum())} dropped) x "
+                    f"{svals.shape[1]} -> {n_cells} cells",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms})
+        print(f"[interlace] (d) K1 {records[-1]['call']}: bitwise equal to "
+              f"the plain version on the host; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, zeros(C, n + 1).index_add_ {lib_ms:.3f} "
+              f"ms, bound {bound[0]:.3f} ms ({bound[1]}) on {smi}",
+              flush=True)
+        del ids64, vals_t, ref_p
+    del second
+    torch.cuda.empty_cache()
+
+    # ---- (e) plotting --------------------------------------------------
+    import vpower_tpu_torch.utils as utils
+
+    names = ("plot_density_slice", "plot_velocity_slice", "peek_field",
+             "plot_spectrum", "peek_spectrum")
+    _check(all(callable(getattr(utils, n)) for n in names)
+           and "matplotlib" not in sys.modules, "[interlace] (e): the "
+           "plotting names do not resolve, or importing them imported "
+           "matplotlib")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[interlace] (e) vpower_tpu_torch.utils and its five plotting "
+              "names import without matplotlib; matplotlib is not installed "
+              "on this host, so no plot is rendered", flush=True)
+    else:
+        field = vt.deposit(sub, 64, method="cic")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plot_") as d:
+            utils.peek_field(field, save_to=os.path.join(d, "field.png"))
+            utils.peek_spectrum(spec_c, save_to=os.path.join(d, "spec.png"))
+            sizes = [os.path.getsize(os.path.join(d, f))
+                     for f in ("field.png", "spec.png")]
+        _check(min(sizes) > 0, "[interlace] (e): an empty plot")
+        print(f"[interlace] (e) vpower_tpu_torch.utils and its five plotting "
+              f"names import without matplotlib; peek_field of a 64^3 card "
+              f"field and peek_spectrum of (c) rendered ({sizes} bytes)",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[interlace] phase {time.perf_counter() - t_phase:.1f} s; peak "
+          f"memory {peak:.2f} GiB ({held:.2f} GiB held before the phase)",
+          flush=True)
     return launches, records
 
 
@@ -3232,6 +3570,12 @@ def main():
         (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
     torch.cuda.empty_cache()
 
+    # ---- 17. the interlaced and compensated mesh branch --------------
+    interlace_l, interlace_calls = _interlace_phase(
+        torch, vt, particles, smi,
+        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    torch.cuda.empty_cache()
+
     def cli_launches(kernel):
         return {f"cli_{key}": n[kernel] for key, n in cli_l.items()}
 
@@ -3252,7 +3596,7 @@ def main():
         + sa["sorted_scatter"] + sc["sorted_scatter"]
         + sum(cli_launches("sorted_scatter").values())
         + ma["sorted_scatter"] + mc["sorted_scatter"]
-        + sum(scatter_l.values()),
+        + sum(scatter_l.values()) + sum(interlace_l.values()),
         max(k1_err, fold["err"], sph_rec["err"],
             stream_err["sorted_scatter"]),
         {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound": k1_bound},
@@ -3265,11 +3609,13 @@ def main():
                                     **cli_launches("sorted_scatter"),
                                     "mesh": ma["sorted_scatter"],
                                     "mesh_exact": mc["sorted_scatter"],
-                                    "scatter": sum(scatter_l.values())}
+                                    "scatter": sum(scatter_l.values()),
+                                    "interlace": sum(interlace_l.values())}
     k1_entry["fold"] = fold["calls"]
     k1_entry["sph"] = [sph_rec["k1"]]
     k1_entry["streamed"] = stream_calls["sorted_scatter"]
     k1_entry["scatter"] = scatter_calls
+    k1_entry["interlace"] = interlace_calls
     k2_entry = entry("nn_sweep", "vpower_tpu/deposit/nn_pallas.py:608",
                      launches["nn_sweep"] + sa["nn_sweep"] + sc["nn_sweep"]
                      + sum(cli_launches("nn_sweep").values())

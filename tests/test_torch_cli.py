@@ -282,7 +282,7 @@ def test_cli_multi_gpu_raises(tmp_path, snapshot, monkeypatch, capsys,
     the unfolded and fused routes call ``distributed_spectrum`` on the
     mesh once a beta and write the Pk.txt of the --single-chip run
     (Nsample equal, Psum within 1e-5); an --interlace run stays on one
-    card (ROADMAP item 14c), with the JAX CLI's log line."""
+    card, as the JAX CLI keeps it, with the JAX CLI's log line."""
     from vpower_tpu_torch import parallel as tparallel
 
     calls = []

@@ -4,8 +4,11 @@ package on its 8 virtual CPU devices, on the same numpy-seeded particles:
 deposits (``deposit_ngp_local``, ``deposit_cic_local``,
 ``deposit_cic_sharded`` with ``halo_add``), ``distributed_spectrum``
 (unfolded and fused fold) and ``distributed_folded_sweep``, on meshes of
-shapes (4, 2), (2, 1) and (1, 1); the rejections; and two processes
-joined by ``multihost.initialize`` over ``gloo`` on a (2, 2) mesh.
+shapes (4, 2), (2, 1) and (1, 1); their ``interlace`` and ``compensate``
+branch (the half-cell-shifted set's owner buckets bitwise; the sweep
+combined against the single card's within the JAX test's 2e-4); the
+rejections; and two processes joined by ``multihost.initialize`` over
+``gloo`` on a (2, 2) mesh.
 
 Tolerances: buckets and offsets bitwise; a deposit within 1e-6 a cell
 of the single-card deposit (relative to the cell's sum of |terms|; the
@@ -269,17 +272,131 @@ def test_distributed_folded_sweep_matches_jax(beta_batch):
                                    rtol=2e-4)
 
 
-@pytest.mark.parametrize("flag", ["interlace", "compensate"])
-@pytest.mark.parametrize("entry", ["spectrum", "sweep"])
-def test_interlace_and_compensate_raise_naming_14c(flag, entry):
-    tp, _ = _particles(200, 8)
-    tm = make_mesh(2, devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        if entry == "spectrum":
-            distributed_spectrum(tp, 8, tm, quantity="momentum",
-                                 **{flag: True})
-        else:
-            distributed_folded_sweep(tp, 8, tm, m=2, **{flag: True})
+# ---------------------------------------------------------------------- #
+# the interlaced and compensated branch                                   #
+# ---------------------------------------------------------------------- #
+FLAGS = [dict(interlace=True), dict(compensate=True),
+         dict(interlace=True, compensate=True)]
+
+
+@pytest.mark.parametrize("fold", [None, (2, (1, 0, 1))])
+@pytest.mark.parametrize("method", ["ngp", "cic"])
+@pytest.mark.parametrize("flags", FLAGS, ids=["interlace", "compensate",
+                                              "both"])
+def test_distributed_spectrum_flags_match_jax(flags, method, fold):
+    """The momentum spectrum with each flag and both, unfolded (the
+    fused route with every phase 1) and one fused beta, on the (4, 2)
+    mesh against the JAX package's."""
+    from vpower_tpu.parallel import distributed_spectrum as jds
+
+    tp, jp = _particles(3000, 11)
+    tm, jm = _meshes((4, 2))
+    kw = dict(method=method, quantity="momentum", fold=fold, **flags)
+    n = 16 if fold is None else 8
+    _same(distributed_spectrum(tp, n, tm, **kw), jds(jp, n, jm, **kw))
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 1)])
+def test_distributed_spectrum_flags_mesh_shapes_match_jax(shape):
+    """Axes of size 1: the mode lattice of the pencil-output blocks and
+    the second set's owners, unfolded and folded, as JAX's."""
+    from vpower_tpu.parallel import distributed_spectrum as jds
+
+    tp, jp = _particles(2000, 12)
+    tm, jm = _meshes(shape)
+    for n, fold in ((16, None), (8, (2, (0, 1, 1)))):
+        kw = dict(method="cic", quantity="momentum", fold=fold,
+                  interlace=True, compensate=True)
+        _same(distributed_spectrum(tp, n, tm, **kw), jds(jp, n, jm, **kw))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_interlaced_compensated_sweep_matches_jax(shape):
+    """``distributed_folded_sweep(m=2, method="cic", interlace=True,
+    compensate=True)``, all 8 betas, beta by beta against the JAX mesh's
+    one-scan sweep."""
+    from vpower_tpu.parallel import distributed_folded_sweep as jdfs
+
+    tp, jp = _particles(3000, 13)
+    tm, jm = _meshes(shape)
+    kw = dict(m=2, method="cic", interlace=True, compensate=True)
+    got = distributed_folded_sweep(tp, 8, tm, **kw)
+    ref = jdfs(jp, 8, jm, **kw)
+    assert len(got) == len(ref) == 8
+    for a, b in zip(got, ref):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("method", ["ngp", "cic"])
+def test_flags_at_m1_sweep_match_jax(method):
+    """``distributed_folded_sweep(m=1)`` with the flags takes the fused
+    route at beta (0, 0, 0), as JAX's does."""
+    from vpower_tpu.parallel import distributed_folded_sweep as jdfs
+
+    tp, jp = _particles(2000, 14)
+    tm, jm = _meshes((4, 2))
+    kw = dict(m=1, method=method, interlace=True, compensate=True)
+    got, ref = distributed_folded_sweep(tp, 16, tm, **kw), jdfs(jp, 16, jm,
+                                                                 **kw)
+    assert len(got) == len(ref) == 1
+    _same(list(got)[0], list(ref)[0])
+
+
+@pytest.mark.parametrize("method, fold_m, shape", [
+    ("ngp", 1, (4, 2)), ("cic", 2, (4, 2)), ("cic", 1, (2, 1)),
+    ("ngp", 2, (1, 1))])
+def test_interlaced_set_bucketing_matches_jax(method, fold_m, shape):
+    """The half-cell-shifted positions bitwise equal to the JAX
+    package's (a periodic wrap at the box edge included), and their
+    owner buckets bitwise equal to JAX's ``shard_particles_host``."""
+    from vpower_tpu.parallel.pipeline import (
+        _interlaced_particles as j_interlaced, _sharded_inputs as j_sharded)
+    from vpower_tpu_torch.parallel.pipeline import (
+        _interlaced_particles, _sharded_inputs)
+
+    tp, jp = _particles(3000, 15)
+    # particles within half a cell of the upper edge wrap to the lower
+    edge = np.float32(1.0) - np.float32(0.25 / (fold_m * 8))
+    tp.pos[:50] = torch.from_numpy(np.full((50, 3), edge, np.float32))
+    jp = jp.__class__(box_size=1.0, pos=jp.pos.at[:50].set(edge),
+                      vel=jp.vel, mass=jp.mass, density=jp.density)
+    tm, jm = _meshes(shape)
+    t2, j2 = (_interlaced_particles(tp, fold_m * 8),
+              j_interlaced(jp, fold_m * 8))
+    assert torch.equal(t2.vel, tp.vel) and torch.equal(t2.mass, tp.mass)
+    np.testing.assert_array_equal(t2.pos.numpy(), np.asarray(j2.pos))
+    assert float(t2.pos[:50].max()) < 0.5
+    pos, val = _sharded_inputs(t2, tm, 8, fold_m, method, momentum_only=True)
+    jpos, jval = j_sharded(j2, jm, 8, fold_m, method, momentum_only=True)
+    n = shape[0] * shape[1]
+    for got, ref in ((pos, jpos), (val, jval)):
+        assert len(got) == n
+        np.testing.assert_array_equal(np.stack([t.numpy() for t in got]),
+                                      ref.reshape((n,) + ref.shape[2:]))
+
+
+@pytest.mark.parametrize("method", ["ngp", "cic"])
+def test_interlaced_compensated_sweep_matches_single_card(method):
+    """The mesh sweep combined against the port's single-card
+    ``fused_fold_full_spectrum(..., interlace=True, compensate=True)``
+    (Nsample bitwise, Psum within the JAX test's 2e-4), and the unfolded
+    flags against the single-card ``power_spectrum`` (rfft route)."""
+    from vpower_tpu_torch.run.pipeline import (fused_fold_full_spectrum,
+                                               power_spectrum)
+
+    tp, _ = _particles(3000, 16)
+    tm = make_mesh(8, shape=(4, 2), devices=[CPU] * 8)
+    kw = dict(method=method, interlace=True, compensate=True)
+    got = distributed_folded_sweep(tp, 8, tm, m=2, **kw).combine_all()
+    ref = fused_fold_full_spectrum(tp, 8, 2, **kw)
+    n = min(len(got), len(ref))
+    np.testing.assert_array_equal(got.Nsample[:n], ref.Nsample[:n])
+    np.testing.assert_allclose(got.Psum[:n], ref.Psum[:n], rtol=2e-4)
+    got = distributed_spectrum(tp, 16, tm, quantity="momentum", **kw)
+    ref = power_spectrum(tp, 16, quantity="momentum", **kw)
+    n = min(len(got), len(ref))
+    np.testing.assert_array_equal(got.Nsample[:n], ref.Nsample[:n])
+    np.testing.assert_allclose(got.Psum[:n], ref.Psum[:n], rtol=2e-4)
 
 
 def test_rejections_keep_the_jax_texts():
@@ -312,6 +429,9 @@ def test_cpu_mesh_never_touches_cuda(monkeypatch):
     distributed_spectrum(tp, 8, tm, method="cic")
     distributed_folded_sweep(tp, 8, tm, m=2, method="cic",
                              beta_sequence=[(1, 0, 1)])
+    distributed_folded_sweep(tp, 8, tm, m=2, method="cic",
+                             beta_sequence=[(1, 0, 1)], interlace=True,
+                             compensate=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -324,13 +444,18 @@ LAYOUTS = {"rows": [[0, 0], [1, 1]], "cols": [[0, 1], [0, 1]]}
 
 
 def _run_all(mesh, particles):
-    """The CIC velocity spectrum and one fused CIC beta's sub-spectrum."""
+    """The CIC velocity spectrum and one fused CIC beta's sub-spectrum,
+    plain and interlaced and compensated."""
     out = {}
     for name, s in (
             ("cic", distributed_spectrum(particles, 8, mesh, method="cic")),
             ("fold", list(distributed_folded_sweep(
                 particles, 8, mesh, m=2, method="cic",
-                beta_sequence=[(1, 0, 1)]))[0])):
+                beta_sequence=[(1, 0, 1)]))[0]),
+            ("interlace", list(distributed_folded_sweep(
+                particles, 8, mesh, m=2, method="cic",
+                beta_sequence=[(1, 0, 1)], interlace=True,
+                compensate=True))[0])):
         out[name + "_Psum"], out[name + "_Nsample"] = s.Psum, s.Nsample
     return out
 
@@ -352,8 +477,9 @@ def test_two_process_gloo_matches_in_process_mesh(tmp_path):
     device="cpu")`` and run the CIC velocity spectrum of
     ``tests/multiproc_worker.py`` (the JAX package's particles of
     ``PRNGKey(8)``) and one fused CIC beta on a (2, 2) mesh of two
-    entries each, laid out by rows and by columns: both equal the
-    in-process (2, 2) mesh's, and the spectrum the JAX package's."""
+    entries each, laid out by rows and by columns, and the same beta
+    interlaced and compensated: both equal the in-process (2, 2) mesh's,
+    and the spectrum the JAX package's."""
     import jax
     from vpower_tpu import synthetic_particles as jsynthetic
     from vpower_tpu.parallel import distributed_spectrum as jds
@@ -394,7 +520,7 @@ def test_two_process_gloo_matches_in_process_mesh(tmp_path):
     for r in range(2):
         got = np.load(outs[r])
         for layout in LAYOUTS:
-            for name in ("cic", "fold"):
+            for name in ("cic", "fold", "interlace"):
                 np.testing.assert_array_equal(
                     got[f"{layout}_{name}_Nsample"], ref[name + "_Nsample"])
                 psum = ref[name + "_Psum"]

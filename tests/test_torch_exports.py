@@ -1,19 +1,14 @@
 """The port's subpackages export every public name of their JAX twins
 (fault F7): for each of ``run``, ``spectrum``, ``deposit``, ``io``,
 ``utils``, ``parallel`` and ``fft``, every name in the JAX ``__all__``
-is in the port's ``__all__`` and resolves.  The only exceptions are names waiting
-for a ROADMAP item, listed here."""
+is in the port's ``__all__`` and resolves.  Names waiting for a ROADMAP
+item would be listed here; none is left."""
 import importlib
 
 import pytest
 
 # name -> the ROADMAP item that ports it
-WAITING = {
-    "utils": {
-        "plot_density_slice": 15, "plot_velocity_slice": 15,
-        "peek_field": 15, "plot_spectrum": 15, "peek_spectrum": 15,
-    },
-}
+WAITING = {}
 
 
 @pytest.mark.parametrize("sub", ["run", "spectrum", "deposit", "io",

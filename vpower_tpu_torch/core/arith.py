@@ -12,7 +12,7 @@ __all__ = ["div"]
 def _divisor(s: float, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
     """The 0-d divisor tensor, made once per value, dtype and device:
-    making a tensor on the card copies from the host and waits for the
+    making a tensor on the card copies from the host and waits on the
     stream, which a loop of block descents must not do per call."""
     return torch.tensor(s, dtype=dtype, device=device)
 

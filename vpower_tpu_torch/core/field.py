@@ -4,8 +4,7 @@ PyTorch counterparts of :class:`vpower_tpu.core.field.BoxField` and
 :class:`vpower_tpu.core.field.FoldedField` (reference ``BoxField`` and
 ``FoldedBox``, ``vpower/interp.py:456-811``).  Multi-channel grids stay
 CHANNELS-FIRST (``velocity`` is ``(3, N, N, N)``) so each public
-function matches its JAX counterpart's layout.  ``peek`` waits for the
-plotting helpers.
+function matches its JAX counterpart's layout.
 
 Reference bugs fixed (as in the JAX package): ``momentum`` uses every
 component (the reference's ``momentum_power`` used ``vx`` for all
@@ -90,6 +89,14 @@ class BoxField:
         sl = slice(n_margin, n_margin + n_keep)
         return BoxField(velocity=self.velocity[:, sl, sl, sl],
                         mass=self.mass[sl, sl, sl], cell_size=self.cell_size)
+
+    def peek(self, **kwargs):
+        """Object-level convenience mirroring the reference's
+        ``BoxField.peek`` (``interp.py:669``); delegates to
+        :func:`vpower_tpu_torch.utils.plotting.peek_field`."""
+        from ..utils.plotting import peek_field
+
+        return peek_field(self, **kwargs)
 
     def down_sample(self, n: int) -> "BoxField":
         """Mass-weighted down-sample by the integer factor ``n``: momentum

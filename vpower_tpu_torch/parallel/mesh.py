@@ -31,18 +31,6 @@ import torch
 __all__ = ["make_mesh", "mesh_shape_for"]
 
 
-def _multi_gpu_not_ported(what: str):
-    """The error the mesh scatter pipelines raise for ``interlace`` and
-    ``compensate`` until ROADMAP item 14c lands: a run never quietly
-    falls back to one card."""
-    return NotImplementedError(
-        f"{what} with interlace or compensate runs the interlaced and "
-        f"compensated mesh pipeline, which belongs to ROADMAP item 14c and "
-        f"is not ported yet; run on one card (--single-chip on the command "
-        f"line, or run.power_spectrum / run.fused_fold_spectrum)"
-    )
-
-
 def _device_array(devices: Sequence, shape) -> np.ndarray:
     """An object array of ``torch.device`` of ``shape`` (``np.asarray``
     would not keep the devices as scalars)."""

@@ -21,13 +21,20 @@ launch of the phased real and imaginary channels an entry.  A Python
 loop over the betas does the work of the JAX package's ``lax.scan``;
 ``beta_batch`` keeps its meaning, the betas a reduction combines.  Each
 step runs entry by entry from one Python loop and reads nothing on the
-host until the result.  ``interlace`` and ``compensate`` on the mesh are
-ROADMAP item 14c and raise; the single-card pipelines
-(:func:`vpower_tpu_torch.run.power_spectrum`,
-:func:`vpower_tpu_torch.run.fused_fold_spectrum`) have them.
+host until the result.
+
+``interlace`` and ``compensate`` always take the fused route (exact at
+``fold_m = 1`` too: every phase is 1).  ``interlace`` buckets a second
+particle set, shifted by half a full-resolution cell, to its own
+owners and deposits it with its own targets (a second K1 launch an
+entry a beta); both sets' complex pencil transforms are combined on
+the global mode lattice ``K = m t + beta`` of each entry's
+pencil-output block, where ``compensate`` divides by the
+full-resolution deposition window.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -38,8 +45,9 @@ from ..core.arith import div
 from ..core.particles import Particles
 from ..deposit.sorted_scatter import deposit_sorted
 from ..fft import distributed as pencil
-from ..run.pipeline import _phased_values
-from ..spectrum.power import default_k_bins, shell_bin_local
+from ..run.pipeline import _interlace_angle, _mode_window, _phased_values
+from ..spectrum.power import _power, default_k_bins, power_norm, \
+    shell_bin_local
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
 from .deposit import (
     deposit_cic_sharded,
@@ -49,7 +57,7 @@ from .deposit import (
     local_block_info,
     shard_particles_host,
 )
-from .mesh import _local_entries, _multi_gpu_not_ported
+from .mesh import _local_entries
 from .streamed import _combine
 
 __all__ = ["distributed_spectrum", "distributed_folded_sweep"]
@@ -122,11 +130,28 @@ def _fold_targets(mesh, pos, values, n_grid, fold_m, total_box, method):
     return out
 
 
-def _fused(mesh, targets, betas, n_grid, fold_m, total_box, method, kbins):
+def _global_modes(shape, start, n_grid, fold_m, beta, device):
+    """Per-axis global mode coordinates ``K_a = m t_a + beta_a``
+    (float32) of one entry's pencil-OUTPUT block of ``shape`` at global
+    offsets ``start`` (X full, Y/x, Z/y; the lattice of the single-card
+    fused sweep, :func:`vpower_tpu_torch.run.pipeline._fused_fold_sweep`)."""
+    ks = []
+    for a in range(3):
+        j = (start[a] + torch.arange(shape[a], device=device)) % n_grid
+        t = torch.where(j < (n_grid + 1) // 2, j, j - n_grid)
+        ks.append(fold_m * t.to(torch.float32) + float(beta[a]))
+    return ks
+
+
+def _fused(mesh, target_sets, betas, n_grid, fold_m, total_box, method,
+           kbins, comp_order=0):
     """The fused-fold sub-spectra of ``betas`` from sorted targets: per
     beta one K1 launch of the 2C phased channels onto each entry's block
-    (extended for CIC, then :func:`halo_add`), the pencil power and the
-    binning with the beta's shift; one combine for all of them."""
+    a target set (extended for CIC, then :func:`halo_add`), the complex
+    pencil transforms, the power and the binning with the beta's shift;
+    one combine for all of them.  A second target set (the interlaced
+    one) is rotated back by ``e^{-i theta}`` and averaged with the
+    first; ``comp_order`` > 0 divides the power by the window squared."""
     grid_box = total_box / fold_m
     n_total = fold_m * n_grid
     (nlx, nly, nlz), _ = local_block_info(n_grid, mesh)[0]
@@ -134,21 +159,49 @@ def _fused(mesh, targets, betas, n_grid, fold_m, total_box, method, kbins):
         (nlx, nly, nlz)
     n_ext = ext_shape[0] * ext_shape[1] * nlz
     devices = [d for _, d in _local_entries(mesh)]
-    n_ch = targets[0][1].shape[1]
+    starts = pencil.pencil_output_starts(n_grid, mesh)
+    px, py = mesh.devices.shape
+    out_shape = (n_grid, n_grid // px, n_grid // py)
+    a_norm = power_norm(grid_box, n_grid)
+    n_ch = target_sets[0][0][1].shape[1]
+    interlace = len(target_sets) > 1
     rows = [[] for _ in devices]
     for beta in betas:
         beta = tuple(int(b) for b in beta)
-        grids = []
-        for ids_s, vals_s, idx_s in targets:
-            g = deposit_sorted(ids_s, _phased_values(beta, vals_s, idx_s,
-                                                     n_total), n_ext)
-            grids.append(g.reshape((2 * n_ch,) + ext_shape))
-        if method == "cic":
-            grids = halo_add(grids, mesh)
-        fields = [torch.complex(g[:n_ch], g[n_ch:]) for g in grids]
-        del grids
-        power = pencil.pencil_power_vector(fields, grid_box, n_grid, mesh)
+        fields = []
+        for targets in target_sets:
+            grids = []
+            for ids_s, vals_s, idx_s in targets:
+                g = deposit_sorted(ids_s, _phased_values(beta, vals_s, idx_s,
+                                                         n_total), n_ext)
+                grids.append(g.reshape((2 * n_ch,) + ext_shape))
+            if method == "cic":
+                grids = halo_add(grids, mesh)
+            fields.append([torch.complex(g[:n_ch], g[n_ch:]) for g in grids])
+            del grids
+        if interlace or comp_order > 0:
+            kf = [_global_modes(out_shape, s, n_grid, fold_m, beta, d)
+                  for s, d in zip(starts, devices)]
+        if interlace:
+            phases = [torch.complex(torch.cos(t), -torch.sin(t)) for t in
+                      (_interlace_angle(k, n_total) for k in kf)]
+        power = None
+        for c in range(n_ch):
+            fk = pencil.pencil_fftn([f[c] for f in fields[0]], mesh)
+            if interlace:
+                fk2 = pencil.pencil_fftn([f[c] for f in fields[1]], mesh)
+                fk = [0.5 * (f1 + ph * f2)
+                      for f1, ph, f2 in zip(fk, phases, fk2)]
+                del fk2
+            p = [_power(f) for f in fk]
+            del fk
+            power = p if power is None else [s + q for s, q in zip(power, p)]
         del fields
+        power = [s * (a_norm * a_norm) for s in power]
+        if comp_order > 0:
+            ws = [_mode_window(k, n_total, comp_order) for k in kf]
+            power = [s / (w * w) for s, w in zip(power, ws)]
+            del ws
         kshifts = [div(torch.tensor(beta, dtype=torch.float32, device=d)
                        * (2.0 * math.pi), total_box) for d in devices]
         k, beta_rows = _bin_local(mesh, power, n_grid, grid_box, kbins,
@@ -188,6 +241,37 @@ def _k_bins(box_size, n_grid, fold_m, kmin, kmax, spacing):
                           spacing)[:3]
 
 
+def _comp_order(method: str, compensate: bool) -> int:
+    """The window's order: 1 NGP, 2 CIC; 0 without ``compensate``."""
+    return {"ngp": 1, "cic": 2}[method] if compensate else 0
+
+
+def _interlaced_particles(particles: Particles, n_total: int) -> Particles:
+    """The second deposit of an interlaced pair: positions shifted by
+    half a FULL-RESOLUTION cell per axis (periodic wrap)."""
+    cell_total = particles.box_size / n_total
+    return dataclasses.replace(
+        particles, pos=torch.remainder(particles.pos + cell_total / 2.0,
+                                       particles.box_size))
+
+
+def _target_sets(particles, mesh, n_grid, fold_m, method, interlace,
+                 momentum_only):
+    """The fused route's sorted targets a local entry: one set, and with
+    ``interlace`` a second one of the shifted particles, bucketed to
+    their own owners."""
+    box = float(particles.box_size)
+    sets = []
+    for p in ([particles, _interlaced_particles(particles, fold_m * n_grid)]
+              if interlace else [particles]):
+        pos, values = _sharded_inputs(p, mesh, n_grid, fold_m, method,
+                                      momentum_only=momentum_only)
+        sets.append(_fold_targets(mesh, pos, values, n_grid, fold_m, box,
+                                  method))
+        del pos, values
+    return sets
+
+
 def distributed_spectrum(
     particles: Particles,
     n_grid: int,
@@ -208,9 +292,13 @@ def distributed_spectrum(
     while each entry holds O(n_grid^3 / n_entries) of every grid and
     deposits O(Np / n_entries) particles.  ``method`` is ngp or cic.
 
-    ``interlace`` and ``compensate`` (the mesh analogs of the
-    single-card :func:`vpower_tpu_torch.run.power_spectrum` flags) are
-    ROADMAP item 14c: they raise ``NotImplementedError``.
+    ``interlace`` folds a SECOND deposit from half-full-res-cell-shifted
+    positions (bucketed to their own owner entries) and combines the two
+    pencil transforms on the global mode lattice ``K = m t + beta``;
+    ``compensate`` deconvolves the full-resolution deposition window —
+    the mesh analogs of the single-card
+    :func:`vpower_tpu_torch.run.power_spectrum` flags, momentum only
+    (the fused fold scatters ``m v`` with phase weights).
     """
     fold_m, beta = (1, (0, 0, 0)) if fold is None else (
         int(fold[0]), tuple(int(b) for b in fold[1])
@@ -222,20 +310,17 @@ def distributed_spectrum(
             "phase weights); for folded velocity/energy use the "
             "block-streamed pipeline (vpower_tpu.streamed_folded_sweep)."
         )
-    if interlace or compensate:
-        raise _multi_gpu_not_ported("distributed_spectrum")
     _check_method(method)
     box = float(particles.box_size)
     kbins = _k_bins(box, n_grid, fold_m, kmin, kmax, spacing)
-    pos, values = _sharded_inputs(particles, mesh, n_grid, fold_m, method,
-                                  momentum_only=fold_m > 1)
-    if fold_m > 1:
-        targets = _fold_targets(mesh, pos, values, n_grid, fold_m, box,
-                                method)
-        del pos, values
-        k, acc = _fused(mesh, targets, [beta], n_grid, fold_m, box, method,
-                        kbins)
+    if fold_m > 1 or interlace or compensate:
+        sets = _target_sets(particles, mesh, n_grid, fold_m, method,
+                            interlace, momentum_only=True)
+        k, acc = _fused(mesh, sets, [beta], n_grid, fold_m, box, method,
+                        kbins, _comp_order(method, compensate))
     else:
+        pos, values = _sharded_inputs(particles, mesh, n_grid, 1, method,
+                                      momentum_only=False)
         k, acc = _unfolded(mesh, pos, values, n_grid, box, method, quantity,
                            kbins)
     return PowerSpectrum.from_binned(
@@ -258,9 +343,9 @@ def distributed_folded_sweep(
     compensate: bool = False,
 ) -> SpectrumList:
     """All m^3 (or a subset of) folded sub-spectra on the mesh:
-    particles are bucketed once and the fused-fold targets sorted once;
-    then each beta is one K1 launch an entry, a pencil power and the
-    binning.
+    particles are bucketed once and the fused-fold targets sorted once
+    (twice with ``interlace``); then each beta is one K1 launch an entry
+    a target set, the pencil transforms, the power and the binning.
 
     ``beta_batch`` splits the betas into chunks, each combined over the
     mesh with one reduction (default: all in one).
@@ -271,8 +356,6 @@ def distributed_folded_sweep(
             "momentum field; for folded velocity/energy use "
             "vpower_tpu.streamed_folded_sweep."
         )
-    if interlace or compensate:
-        raise _multi_gpu_not_ported("distributed_folded_sweep")
     _check_method(method)
     if beta_sequence is None:
         beta_sequence = init_beta_space(m)
@@ -280,19 +363,22 @@ def distributed_folded_sweep(
     m = int(m)
     box = float(particles.box_size)
     kbins = _k_bins(box, n_grid, m, None, None, None)
-    pos, values = _sharded_inputs(particles, mesh, n_grid, m, method,
-                                  momentum_only=quantity == "momentum")
-    if m > 1:
-        targets = _fold_targets(mesh, pos, values, n_grid, m, box, method)
-        del pos, values
+    use_fused = m > 1 or interlace or compensate
+    momentum_only = quantity == "momentum"
+    if use_fused:
+        sets = _target_sets(particles, mesh, n_grid, m, method, interlace,
+                            momentum_only)
+    else:
+        pos, values = _sharded_inputs(particles, mesh, n_grid, m, method,
+                                      momentum_only=momentum_only)
     if beta_batch is None:
         beta_batch = len(betas_np)
     spectra = []
     for i in range(0, len(betas_np), beta_batch):
         chunk = betas_np[i: i + beta_batch]
-        if m > 1:
-            k, acc = _fused(mesh, targets, chunk, n_grid, m, box, method,
-                            kbins)
+        if use_fused:
+            k, acc = _fused(mesh, sets, chunk, n_grid, m, box, method,
+                            kbins, _comp_order(method, compensate))
         else:
             k, acc = _unfolded(mesh, pos, values, n_grid, box, method,
                                quantity, kbins)

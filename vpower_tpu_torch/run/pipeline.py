@@ -277,6 +277,26 @@ def _fold_grid(beta, target, n_grid: int, n_total: int) -> torch.Tensor:
     return torch.complex(g[:n_ch], g[n_ch:])
 
 
+def _interlace_angle(kf, n_total: int) -> torch.Tensor:
+    """``theta = pi (Kx + Ky + Kz) / N_total`` on the per-axis global
+    modes ``kf`` (float32): the phase of a shift by half a
+    full-resolution cell at each mode.  The interlaced combination
+    rotates the shifted deposit's transform by ``e^{-i theta}``, as the
+    JAX package does; ROADMAP fault F8 is on that sign."""
+    return (math.pi / n_total) * (
+        kf[0][:, None, None] + kf[1][None, :, None] + kf[2][None, None, :])
+
+
+def _mode_window(kf, n_total: int, order: int) -> torch.Tensor:
+    """The full-resolution deposition window ``prod_a sinc(pi K_a /
+    N_total)^order`` (``sinc(0) = 1``; order 1 NGP, 2 CIC) on the
+    per-axis global modes ``kf``."""
+    x = [div(math.pi * k, float(n_total)) for k in kf]
+    s = [torch.where(xi != 0, torch.sin(xi) / torch.where(xi != 0, xi, 1.0),
+                     1.0) ** order for xi in x]
+    return s[0][:, None, None] * s[1][None, :, None] * s[2][None, None, :]
+
+
 def _fused_fold_sweep(
     particles: Particles,
     betas: Sequence[Tuple[int, int, int]],
@@ -324,22 +344,14 @@ def _fused_fold_sweep(
         kf = [m * wrapped + float(beta[a]) for a in range(3)]
         if interlace:
             grid2 = _fold_grid(beta, tgt[1], n_grid, n_total)
-            th = (math.pi / n_total) * (
-                kf[0][:, None, None] + kf[1][None, :, None]
-                + kf[2][None, None, :])
             p_grid = power_mod.interlaced_power_from_complex(
-                grid, grid2, folded_box, th)
+                grid, grid2, folded_box, _interlace_angle(kf, n_total))
             del grid2
         else:
             p_grid = power_mod.vector_power_from_complex(grid, folded_box)
         del grid
         if comp_order > 0:
-            x = [div(math.pi * k, float(n_total)) for k in kf]
-            s = [torch.where(xi != 0,
-                             torch.sin(xi) / torch.where(xi != 0, xi, 1.0),
-                             1.0) ** comp_order for xi in x]
-            w = s[0][:, None, None] * s[1][None, :, None] \
-                * s[2][None, None, :]
+            w = _mode_window(kf, n_total, comp_order)
             p_grid = p_grid / (w * w)
         kshift = div(torch.tensor(beta, dtype=torch.float32, device=dev)
                      * (2.0 * math.pi), box)

@@ -4,8 +4,7 @@ Counterpart of :mod:`vpower_tpu.spectrum.spectrum` (reference
 ``PowerSpectrum`` / ``SpectrumList``, ``vpower/spctrm.py:55-315``),
 copied from it: the binned spectrum is a few thousand rows, so this
 layer is numpy in both packages.  The port keeps its own copy rather
-than import the JAX package.  ``peek`` and ``plot`` wait for the
-plotting helpers.
+than import the JAX package.
 
 Reference bugs fixed (as in the JAX package):
 
@@ -266,6 +265,22 @@ class PowerSpectrum:
                 z["k"], z["P"], z["Psum"], z["Nsample"],
                 m=int(z["m"]), beta=tuple(z["beta"]),
             )
+
+    def peek(self, **kwargs):
+        """Object-level convenience mirroring the reference's
+        ``PowerSpectrum.peek`` (``spctrm.py:176``); delegates to
+        :func:`vpower_tpu_torch.utils.plotting.peek_spectrum`."""
+        from ..utils.plotting import peek_spectrum
+
+        return peek_spectrum(self, **kwargs)
+
+    def plot(self, **kwargs):
+        """Object-level convenience mirroring the reference's
+        ``PowerSpectrum.plot`` (``spctrm.py:193``); delegates to
+        :func:`vpower_tpu_torch.utils.plotting.plot_spectrum`."""
+        from ..utils.plotting import plot_spectrum
+
+        return plot_spectrum(self, **kwargs)
 
     def save_txt(self, path: str) -> None:
         """Reference-compatible 4-column text file

@@ -1,7 +1,16 @@
 from .profiling import StageTimer, Progress, trace, sync, log
 from .checks import ConservationReport, check_conservation
+from .plotting import (
+    plot_density_slice,
+    plot_velocity_slice,
+    peek_field,
+    plot_spectrum,
+    peek_spectrum,
+)
 
 __all__ = [
     "ConservationReport", "check_conservation",
     "StageTimer", "Progress", "trace", "sync", "log",
+    "plot_density_slice", "plot_velocity_slice", "peek_field",
+    "plot_spectrum", "peek_spectrum",
 ]
