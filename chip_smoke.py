@@ -208,16 +208,21 @@ is non-zero):
    and Psum within 1e-5 over the common bins.  (c) one CIC beta (1, 0, 1)
    of a 128^3 grid (range 256) on 1,048,576 particles of the workload
    against a float64 host chain from the formulas (both sets deposited
-   with float64 phases, complex128 FFTs, ``0.5 (F1 + e^{-i theta} F2)``,
+   with float64 phases, complex128 FFTs, ``0.5 (F1 + e^{+i theta} F2)``,
    the window, a histogram): Psum within 1e-5, Nsample equal to the
-   float32 host count; the ratio to the chain with ``e^{+i theta}``
-   printed.  (d) the four K1 calls of (a)'s shifted set (its first beta)
-   bitwise equal to the plain version on the host, each timed beside its
-   bound and ``zeros(C, n + 1).index_add_``.  (e) ``vpower_tpu_torch.utils``
+   float32 host count; the ratio to the chain with ``e^{-i theta}`` (the
+   JAX package's rotation, ROADMAP fault F8) printed.  (d) the four K1
+   calls of (a)'s shifted set (its first beta) bitwise equal to the
+   plain version on the host, each timed beside its bound and
+   ``zeros(C, n + 1).index_add_``.  (e) ``vpower_tpu_torch.utils``
    and its five plotting names resolve without importing matplotlib;
    where matplotlib is installed, ``peek_field`` of a card field and
-   ``peek_spectrum`` render to a temporary PNG.  The phase's time and
-   peak memory.
+   ``peek_spectrum`` render to a temporary PNG.  (f) a momentum plane
+   wave ``cos(2 pi 21 x + 0.3)`` on a 256 x 32 x 32 particle lattice,
+   CIC on a 64^3 grid: ``power_spectrum`` on the card and
+   ``distributed_spectrum`` on the mesh, each with and without
+   ``interlace``; the interlaced Psum of the K = 21 bin equals the plain
+   one within 1e-6 (relative).  The phase's time and peak memory.
 
 The kernel summary is one JSON line: per kernel its launches on the main
 path's run (K1: the NN path's, the fold's, the SPH spectrum's, the
@@ -312,6 +317,9 @@ INTERLACE_P = 1 << 20    # 1,048,576 particles of the workload (a seeded
 # the window's reciprocal multiplied in, v = p / m then m v): the same
 # formulas rounded in another order, ~1e-7 a mode
 INTERLACE_RTOL = 1e-5
+PLANE_N = 64             # [interlace] (f): a 64^3 CIC grid and a plane
+PLANE_K0 = 21            # wave of mode 21 along x (theta = 21 pi / 64)
+PLANE_RTOL = 1e-6        # its interlaced Psum over the plain one, less 1
 STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
 STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
 STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
@@ -597,13 +605,16 @@ def _host_interlaced_binned(pos, vel, mass, n_grid, m, beta, box_size,
     one beta on the host, from the formulas: the transforms of the
     particles and of the particles shifted by half a full-resolution
     cell (float64, periodic wrap), each by :func:`_host_fold_transforms`;
-    ``0.5 (F1 + e^{-i theta} F2)`` with ``theta = pi (Kx + Ky + Kz) /
-    Ntot`` on the global modes ``K = m t + beta``; ``P = 0.5 a^2 sum_c
-    |F|^2`` divided by the window ``prod_a sinc(pi K_a / Ntot)^order``
-    squared (order 1 NGP, 2 CIC); binned on the float32 mode counts of
-    ``bin_grid_local``.  Returns ``(Psum, Nsample, Psum_aligned)``:
-    the last with ``e^{+i theta}``, the rotation that lines a mode of
-    the shifted deposit up with the unshifted one's."""
+    ``0.5 (F1 + e^{+i theta} F2)`` with ``theta = pi (Kx + Ky + Kz) /
+    Ntot`` on the global modes ``K = m t + beta`` (the shift multiplies
+    a mode of ``F(k) = sum rho e^{-i k.x}`` by ``e^{-i theta}``, so this
+    rotation lines the shifted deposit's modes up with the unshifted
+    one's); ``P = 0.5 a^2 sum_c |F|^2`` divided by the window ``prod_a
+    sinc(pi K_a / Ntot)^order`` squared (order 1 NGP, 2 CIC); binned on
+    the float32 mode counts of ``bin_grid_local``.  Returns ``(Psum,
+    Nsample, Psum_jax)``: the reference, its counts, and the same chain
+    with ``e^{-i theta}``, the JAX package's rotation (ROADMAP fault
+    F8)."""
     n_total = m * n_grid
     shifted = (pos + box_size / n_total / 2.0) % box_size
     t = np.fft.fftfreq(n_grid, 1.0 / n_grid)
@@ -620,7 +631,7 @@ def _host_interlaced_binned(pos, vel, mass, n_grid, m, beta, box_size,
                                   method),
             _host_fold_transforms(shifted, vel, mass, n_grid, m, beta,
                                   box_size, method)):
-        for p, sign in zip(power, (-1.0, 1.0)):
+        for p, sign in zip(power, (1.0, -1.0)):
             fk = 0.5 * (f1 + np.exp(sign * 1j * theta) * f2)
             p += (0.5 * a * a) * (fk.real**2 + fk.imag**2)
     idx, keep, nsamp = _host_fold_nsamp(n_grid, m, beta, box_size, f32=True)
@@ -2509,7 +2520,7 @@ def _interlace_phase(torch, vt, particles, smi, kernel_modules):
     launches["(c)"] = sorted_scatter.LAUNCHES
     t0 = time.perf_counter()
     host = [t.double().cpu().numpy() for t in (sub.pos, sub.vel, sub.mass)]
-    psum_h, nsamp_h, psum_al = _host_interlaced_binned(
+    psum_h, nsamp_h, psum_jax = _host_interlaced_binned(
         *host, INTERLACE_N, FOLD_M, FOLD_BETA, BOX, "cic")
     host_s = time.perf_counter() - t0
     _check(np.array_equal(spec_c.Nsample, nsamp_h.astype(np.float64)),
@@ -2517,19 +2528,19 @@ def _interlace_phase(torch, vt, particles, smi, kernel_modules):
     err_c = rel_err(spec_c.Psum, psum_h)
     _check(err_c <= FOLD_RTOL, f"[interlace] (c): Psum rel err {err_c:.3e} "
            f"> {FOLD_RTOL} against the float64 host chain")
-    sel = psum_al > 0
-    ratio = spec_c.Psum[sel] / psum_al[sel]
+    sel = psum_jax > 0
+    ratio = spec_c.Psum[sel] / psum_jax[sel]
     print(f"[interlace] (c) distributed_spectrum({INTERLACE_P} particles, "
           f"{INTERLACE_N}, mesh, method='cic', quantity='momentum', fold="
           f"({FOLD_M}, {FOLD_BETA}), interlace=True, compensate=True): "
           f"{wall_c:.4f} s, K1 launches {launches['(c)']}; against the "
-          f"float64 host chain of 0.5 (F1 + e^-i theta F2) over the window "
+          f"float64 host chain of 0.5 (F1 + e^+i theta F2) over the window "
           f"squared ({host_s:.1f} s): Nsample equal to the float32 host "
           f"count, Psum max rel err {err_c:.3e} (gate {FOLD_RTOL}); against "
-          f"the chain with e^+i theta (the rotation that lines the shifted "
-          f"deposit's modes up with the unshifted one's, ROADMAP fault F8) "
-          f"Psum / chain {ratio[0]:.6f} in the first bin, {ratio[-1]:.6f} "
-          f"in the last, {ratio.min():.6f} at least", flush=True)
+          f"the chain with e^-i theta (the JAX package's rotation, ROADMAP "
+          f"fault F8) Psum / chain {ratio[0]:.6f} in the first bin, "
+          f"{ratio[-1]:.6f} in the last, {ratio.max():.6f} at most",
+          flush=True)
 
     # ---- (d) K1 at the shifted set's shapes ----------------------------
     records = []
@@ -2589,11 +2600,68 @@ def _interlace_phase(torch, vt, particles, smi, kernel_modules):
               f"names import without matplotlib; peek_field of a 64^3 card "
               f"field and peek_spectrum of (c) rendered ({sizes} bytes)",
               flush=True)
+
+    # ---- (f) a plane wave keeps its power under interlacing -----------
+    t0 = time.perf_counter()
+    wave = _plane_wave(torch, vt, dev)
+    kw = dict(method="cic", quantity="momentum")
+    ratios = {}
+    for name, run in (
+            ("single card", lambda il: vt.power_spectrum(
+                wave, PLANE_N, interlace=il, **kw)),
+            ("mesh", lambda il: distributed_spectrum(
+                wave, PLANE_N, mesh, interlace=il, **kw))):
+        zero_counts()
+        plain, inter = (_mode_psum(run(il), PLANE_K0) for il in (False,
+                                                                 True))
+        torch.cuda.synchronize()
+        launches[f"(f) {name}"] = sorted_scatter.LAUNCHES
+        ratios[name] = inter / plain
+        _check(plain > 0 and abs(ratios[name] - 1.0) <= PLANE_RTOL,
+               f"[interlace] (f) {name}: interlaced / plain Psum at K = "
+               f"{PLANE_K0} is {ratios[name]!r}, plain {plain!r}")
+    wall_f = time.perf_counter() - t0
+    print(f"[interlace] (f) a momentum plane wave cos(2 pi {PLANE_K0} x + "
+          f"0.3) on {len(wave)} lattice particles, CIC on {PLANE_N}^3, K = "
+          f"{PLANE_K0} bin: interlaced / plain Psum - 1 = "
+          f"{ratios['single card'] - 1.0:.3e} by power_spectrum on the "
+          f"card (K1 launches {launches['(f) single card']}), "
+          f"{ratios['mesh'] - 1.0:.3e} by distributed_spectrum on {mesh} "
+          f"(K1 launches {launches['(f) mesh']}) (gate {PLANE_RTOL}; the "
+          f"e^-i theta rotation would give cos^2(pi {PLANE_K0} / {PLANE_N})"
+          f" = {math.cos(math.pi * PLANE_K0 / PLANE_N) ** 2:.6f}); "
+          f"{wall_f:.2f} s", flush=True)
+    del wave
+    torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[interlace] phase {time.perf_counter() - t_phase:.1f} s; peak "
           f"memory {peak:.2f} GiB ({held:.2f} GiB held before the phase)",
           flush=True)
     return launches, records
+
+
+def _plane_wave(torch, vt, dev):
+    """A (4 N) x (N / 2) x (N / 2) particle lattice at the centres of its
+    cells, ``N = PLANE_N``, mass 1, velocity ``(cos(2 pi PLANE_K0 x / L +
+    0.3), 0, 0)``: the half-cell shift of the interlaced deposit moves it
+    by two lattice sites along x, so its K0 mode is the unshifted one's
+    times ``e^{-i theta}`` exactly."""
+    axes = [(torch.arange(n, dtype=torch.float64, device=dev) + 0.5) / n
+            for n in (4 * PLANE_N, PLANE_N // 2, PLANE_N // 2)]
+    pos = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    vel = torch.zeros_like(pos)
+    vel[:, 0] = torch.cos(2.0 * math.pi * PLANE_K0 * pos[:, 0] + 0.3)
+    ones = torch.ones(pos.shape[0], device=dev)
+    return vt.Particles(pos=(pos * BOX).float(), vel=vel.float(), mass=ones,
+                        density=ones, box_size=BOX)
+
+
+def _mode_psum(spec, k0):
+    """Psum of the bin of ``spec`` centred on mode ``k0``."""
+    i = int(np.argmin(np.abs(spec.k - 2.0 * math.pi * k0 / BOX)))
+    _check(abs(spec.k[i] * BOX / (2.0 * math.pi) - k0) < 1e-4,
+           f"no bin centred on mode {k0}")
+    return float(spec.Psum[i])
 
 
 def _k2_plain(state, seeds, box_size, periodic=True, has_occ=True,

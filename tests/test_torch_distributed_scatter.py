@@ -279,6 +279,20 @@ FLAGS = [dict(interlace=True), dict(compensate=True),
          dict(interlace=True, compensate=True)]
 
 
+def _interlaced_ref(jp, n, method, fold, compensate, jax_spectrum):
+    """The reference of an interlaced mesh spectrum.  The JAX package
+    rotates the shifted transform by ``e^{-i theta}`` (ROADMAP fault
+    F8), the port by ``e^{+i theta}``: the JAX mesh's pipeline composed
+    from the JAX package's parts on one device is held to
+    ``jax_spectrum``, and the same composition with ``e^{+i theta}`` is
+    returned."""
+    import jax_interlace_ref as jref
+
+    kw = dict(fold=fold, compensate=compensate)
+    _same(jref.mesh_spectrum(jp, n, method, rotation=-1, **kw), jax_spectrum)
+    return jref.mesh_spectrum(jp, n, method, **kw)
+
+
 @pytest.mark.parametrize("fold", [None, (2, (1, 0, 1))])
 @pytest.mark.parametrize("method", ["ngp", "cic"])
 @pytest.mark.parametrize("flags", FLAGS, ids=["interlace", "compensate",
@@ -286,20 +300,25 @@ FLAGS = [dict(interlace=True), dict(compensate=True),
 def test_distributed_spectrum_flags_match_jax(flags, method, fold):
     """The momentum spectrum with each flag and both, unfolded (the
     fused route with every phase 1) and one fused beta, on the (4, 2)
-    mesh against the JAX package's."""
+    mesh against the JAX package's (interlaced: :func:`_interlaced_ref`)."""
     from vpower_tpu.parallel import distributed_spectrum as jds
 
     tp, jp = _particles(3000, 11)
     tm, jm = _meshes((4, 2))
     kw = dict(method=method, quantity="momentum", fold=fold, **flags)
     n = 16 if fold is None else 8
-    _same(distributed_spectrum(tp, n, tm, **kw), jds(jp, n, jm, **kw))
+    ref = jds(jp, n, jm, **kw)
+    if flags.get("interlace"):
+        ref = _interlaced_ref(jp, n, method, fold, flags.get("compensate",
+                                                             False), ref)
+    _same(distributed_spectrum(tp, n, tm, **kw), ref)
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 1)])
 def test_distributed_spectrum_flags_mesh_shapes_match_jax(shape):
     """Axes of size 1: the mode lattice of the pencil-output blocks and
-    the second set's owners, unfolded and folded, as JAX's."""
+    the second set's owners, unfolded and folded, as JAX's
+    (:func:`_interlaced_ref`)."""
     from vpower_tpu.parallel import distributed_spectrum as jds
 
     tp, jp = _particles(2000, 12)
@@ -307,14 +326,15 @@ def test_distributed_spectrum_flags_mesh_shapes_match_jax(shape):
     for n, fold in ((16, None), (8, (2, (0, 1, 1)))):
         kw = dict(method="cic", quantity="momentum", fold=fold,
                   interlace=True, compensate=True)
-        _same(distributed_spectrum(tp, n, tm, **kw), jds(jp, n, jm, **kw))
+        _same(distributed_spectrum(tp, n, tm, **kw),
+              _interlaced_ref(jp, n, "cic", fold, True, jds(jp, n, jm, **kw)))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_interlaced_compensated_sweep_matches_jax(shape):
     """``distributed_folded_sweep(m=2, method="cic", interlace=True,
     compensate=True)``, all 8 betas, beta by beta against the JAX mesh's
-    one-scan sweep."""
+    one-scan sweep (:func:`_interlaced_ref`)."""
     from vpower_tpu.parallel import distributed_folded_sweep as jdfs
 
     tp, jp = _particles(3000, 13)
@@ -324,13 +344,13 @@ def test_interlaced_compensated_sweep_matches_jax(shape):
     ref = jdfs(jp, 8, jm, **kw)
     assert len(got) == len(ref) == 8
     for a, b in zip(got, ref):
-        _same(a, b)
+        _same(a, _interlaced_ref(jp, 8, "cic", (2, b.beta), True, b))
 
 
 @pytest.mark.parametrize("method", ["ngp", "cic"])
 def test_flags_at_m1_sweep_match_jax(method):
     """``distributed_folded_sweep(m=1)`` with the flags takes the fused
-    route at beta (0, 0, 0), as JAX's does."""
+    route at beta (0, 0, 0), as JAX's does (:func:`_interlaced_ref`)."""
     from vpower_tpu.parallel import distributed_folded_sweep as jdfs
 
     tp, jp = _particles(2000, 14)
@@ -339,7 +359,8 @@ def test_flags_at_m1_sweep_match_jax(method):
     got, ref = distributed_folded_sweep(tp, 16, tm, **kw), jdfs(jp, 16, jm,
                                                                  **kw)
     assert len(got) == len(ref) == 1
-    _same(list(got)[0], list(ref)[0])
+    _same(list(got)[0], _interlaced_ref(jp, 16, method, (1, (0, 0, 0)),
+                                        True, list(ref)[0]))
 
 
 @pytest.mark.parametrize("method, fold_m, shape", [

@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_interlace_ref as jref
 from vpower_tpu.core.field import BoxField as JBoxField
 from vpower_tpu.core.particles import Particles as JParticles
 from vpower_tpu.run import pipeline as jpipe
@@ -193,8 +194,16 @@ def test_fused_fold_spectrum_matches_jax(m, n_grid, betas, method, interlace,
     kw = dict(method=method, interlace=interlace, compensate=compensate)
     before = sorted_scatter.LAUNCHES
     for beta in betas:
-        _same_bins(tpipe.fused_fold_spectrum(p, n_grid, m, beta, **kw),
-                   jpipe.fused_fold_spectrum(pj, n_grid, m, beta, **kw))
+        ref = jpipe.fused_fold_spectrum(pj, n_grid, m, beta, **kw)
+        if interlace:
+            # JAX rotates by e^{-i theta} (ROADMAP fault F8): its pipeline
+            # composed from its parts, then the same with e^{+i theta}
+            _same_bins(jref.fused_fold_spectrum(pj, n_grid, m, beta, method,
+                                                compensate, rotation=-1),
+                       ref)
+            ref = jref.fused_fold_spectrum(pj, n_grid, m, beta, method,
+                                           compensate)
+        _same_bins(tpipe.fused_fold_spectrum(p, n_grid, m, beta, **kw), ref)
     # the plain version on the CPU: no kernel launch
     assert sorted_scatter.LAUNCHES == before
 
@@ -250,9 +259,13 @@ def test_interlaced_power_spectrum_matches_jax(method, quantity):
     for compensate in (False, True):
         kw = dict(method=method, quantity=quantity, interlace=True,
                   compensate=compensate)
-        s = tpipe.power_spectrum(p, 16, **kw)
         sj = jpipe.power_spectrum(pj, 16, **kw)
-        _same_bins(s, sj)
+        # JAX rotates by e^{-i theta} (ROADMAP fault F8): its pipeline
+        # composed from its parts, then the same with e^{+i theta}
+        _same_bins(jref.power_spectrum(pj, 16, method, quantity, compensate,
+                                       rotation=-1), sj)
+        _same_bins(tpipe.power_spectrum(p, 16, **kw),
+                   jref.power_spectrum(pj, 16, method, quantity, compensate))
     with pytest.raises(ValueError, match="scatter methods"):
         tpipe.power_spectrum(p, 16, method="nn", interlace=True)
 

@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_interlace_ref as jref
 from vpower_tpu.core.particles import Particles as JParticles
 from vpower_tpu.deposit import mxu_scatter
 from vpower_tpu.deposit import nn as jnn
@@ -170,6 +171,13 @@ def test_unported_options_raise():
                dict(quantity="energy")):
         s = tpipe.power_spectrum(p, 8, method="ngp", **kw)
         sj = jpipe.power_spectrum(pj, 8, method="ngp", **kw)
+        if "interlace" in kw:
+            # JAX rotates by e^{-i theta} (ROADMAP fault F8): its pipeline
+            # composed from its parts, then the same with e^{+i theta}
+            cj = jref.power_spectrum(pj, 8, "ngp", "velocity", rotation=-1)
+            np.testing.assert_array_equal(cj.Nsample, sj.Nsample)
+            np.testing.assert_allclose(cj.Psum, sj.Psum, rtol=1e-6)
+            sj = jref.power_spectrum(pj, 8, "ngp", "velocity")
         np.testing.assert_array_equal(s.Nsample, sj.Nsample)
         np.testing.assert_allclose(s.Psum, sj.Psum, rtol=1e-6)
     for field in (tpipe.deposit(p, 8), tpipe.deposit(p, 8, method="nn",

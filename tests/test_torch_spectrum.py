@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_interlace_ref as jref
 from vpower_tpu.core.field import BoxField as JBoxField
 from vpower_tpu.spectrum import power as jpower
 from vpower_tpu.spectrum import spectrum as jspec
@@ -208,17 +209,25 @@ def test_complex_cross_interlaced_power_match_jax(n):
         _close(tpower.cross_power(torch.from_numpy(x), torch.from_numpy(y),
                                   2.0),
                jpower.cross_power(jnp.asarray(x), jnp.asarray(y), 2.0))
+    # the interlaced grids rotate the shifted transform by e^{+i theta},
+    # the JAX package by e^{-i theta} (ROADMAP fault F8): the reference
+    # is JAX's interlaced_power_from_complex with the angle negated, and
+    # JAX's interlaced_vector_power is that function on the lattice angle
+    lattice = jref.lattice_angle(n)
+    _close(jpower.interlaced_power_from_complex(
+        jnp.asarray(a) + 0j, jnp.asarray(b) + 0j, 2.0, lattice),
+        jpower.interlaced_vector_power(jnp.asarray(a), jnp.asarray(b), 2.0))
     _close(tpower.interlaced_vector_power(torch.from_numpy(a),
                                           torch.from_numpy(b), 2.0),
-           jpower.interlaced_vector_power(jnp.asarray(a), jnp.asarray(b),
-                                          2.0))
+           jpower.interlaced_power_from_complex(
+               jnp.asarray(a) + 0j, jnp.asarray(b) + 0j, 2.0, -lattice))
     theta = np.random.default_rng(n + 1).random((n, n, n)).astype(np.float32)
     _close(tpower.interlaced_power_from_complex(
         torch.from_numpy(f), torch.from_numpy(f[::-1].copy()), 0.7,
         torch.from_numpy(theta)),
         jpower.interlaced_power_from_complex(
             jnp.asarray(f), jnp.asarray(f[::-1].copy()), 0.7,
-            jnp.asarray(theta)))
+            -jnp.asarray(theta)))
 
 
 @pytest.mark.parametrize("n_full,shape,starts,kshift", [

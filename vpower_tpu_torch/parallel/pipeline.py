@@ -150,8 +150,9 @@ def _fused(mesh, target_sets, betas, n_grid, fold_m, total_box, method,
     a target set (extended for CIC, then :func:`halo_add`), the complex
     pencil transforms, the power and the binning with the beta's shift;
     one combine for all of them.  A second target set (the interlaced
-    one) is rotated back by ``e^{-i theta}`` and averaged with the
-    first; ``comp_order`` > 0 divides the power by the window squared."""
+    one) is rotated back by ``e^{+i theta}`` (the half-cell shift
+    multiplies a mode by ``e^{-i theta}``) and averaged with the first;
+    ``comp_order`` > 0 divides the power by the window squared."""
     grid_box = total_box / fold_m
     n_total = fold_m * n_grid
     (nlx, nly, nlz), _ = local_block_info(n_grid, mesh)[0]
@@ -183,7 +184,7 @@ def _fused(mesh, target_sets, betas, n_grid, fold_m, total_box, method,
             kf = [_global_modes(out_shape, s, n_grid, fold_m, beta, d)
                   for s, d in zip(starts, devices)]
         if interlace:
-            phases = [torch.complex(torch.cos(t), -torch.sin(t)) for t in
+            phases = [torch.complex(torch.cos(t), torch.sin(t)) for t in
                       (_interlace_angle(k, n_total) for k in kf)]
         power = None
         for c in range(n_ch):

@@ -281,8 +281,8 @@ def _interlace_angle(kf, n_total: int) -> torch.Tensor:
     """``theta = pi (Kx + Ky + Kz) / N_total`` on the per-axis global
     modes ``kf`` (float32): the phase of a shift by half a
     full-resolution cell at each mode.  The interlaced combination
-    rotates the shifted deposit's transform by ``e^{-i theta}``, as the
-    JAX package does; ROADMAP fault F8 is on that sign."""
+    rotates the shifted deposit's transform by ``e^{+i theta}``: the
+    shift by +h/2 multiplies a mode by ``e^{-i theta}``."""
     return (math.pi / n_total) * (
         kf[0][:, None, None] + kf[1][None, :, None] + kf[2][None, None, :])
 

@@ -129,9 +129,13 @@ def cross_power(a: torch.Tensor, b: torch.Tensor,
 
 def _interlaced(f1: torch.Tensor, f2: torch.Tensor, box_size: float,
                 theta: torch.Tensor) -> torch.Tensor:
-    """``0.5 sum_c |a (F[f1_c] + e^{-i theta} F[f2_c]) / 2|^2``."""
+    """``0.5 sum_c |a (F[f1_c] + e^{+i theta} F[f2_c]) / 2|^2``: shifting
+    the particles by +h/2 multiplies a mode of the forward transform
+    ``F(k) = sum rho(x) e^{-i k.x}`` by ``e^{-i theta}``, so ``F[f2]`` is
+    rotated back by ``e^{+i theta}``.  The JAX package rotates by
+    ``e^{-i theta}`` (ROADMAP fault F8)."""
     a = power_norm(box_size, f1.shape[-1])
-    phase = torch.complex(torch.cos(theta), -torch.sin(theta))
+    phase = torch.complex(torch.cos(theta), torch.sin(theta))
     acc = None
     for c in range(f1.shape[0]):
         fk = 0.5 * (torch.fft.fftn(f1[c]) + phase * torch.fft.fftn(f2[c]))
@@ -144,9 +148,10 @@ def interlaced_vector_power(v: torch.Tensor, v_shifted: torch.Tensor,
                             box_size: float) -> torch.Tensor:
     """Interlaced power grid of real CHANNELS-FIRST (C, N, N, N) fields:
     ``v_shifted`` is the deposit of positions shifted by half a cell per
-    axis, its transform rotated back by ``e^{-i theta}``, ``theta = pi
-    (nx + ny + nz) / N``, so the odd images of the deposition window
-    cancel (Hockney & Eastwood)."""
+    axis, its transform rotated back by ``e^{+i theta}``, ``theta = pi
+    (nx + ny + nz) / N`` (the shift multiplies a mode by ``e^{-i
+    theta}``), so the odd images of the deposition window cancel
+    (Hockney & Eastwood)."""
     n_grid = v.shape[-1]
     t = div(math.pi * _wrapped_index(n_grid, v.device).to(v.dtype),
             float(n_grid))
@@ -160,7 +165,8 @@ def interlaced_power_from_complex(f1: torch.Tensor, f2: torch.Tensor,
     """The folded form of :func:`interlaced_vector_power`: ``f2`` is the
     fold of the deposit shifted by half a FULL-RESOLUTION cell, and
     ``theta = pi (Kx + Ky + Kz) / N_total`` on the global mode lattice
-    ``K = m t + beta``."""
+    ``K = m t + beta``; ``F[f2]`` is rotated back by ``e^{+i theta}``,
+    since the shift multiplies a mode by ``e^{-i theta}``."""
     return _interlaced(f1, f2, box_size, theta)
 
 
