@@ -45,6 +45,7 @@ import torch
 from ..core.arith import div
 from ..core.field import BoxField
 from ..core.particles import Particles
+from ..utils.profiling import span
 from .nn_index_sweep import sweep_tiles
 from .nn_sweep import _centers_1d, _make_dist2, _min_image, sweep_tiles_vals
 from .sorted_scatter import deposit_sorted
@@ -157,10 +158,11 @@ def _seed_grids_vals(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     centers = (ijk.to(pos.dtype) + 0.5) * cell
     d = pos - centers
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    by_d2 = torch.sort(d2, stable=True).indices
-    ids_s, by_id = torch.sort(ids[by_d2], stable=True)
-    order = by_d2[by_id]
-    cols_s = torch.cat([pos, vals], dim=1)[order]                # (N, 3 + V)
+    with span("vpower.deposit.sort"):
+        by_d2 = torch.sort(d2, stable=True).indices
+        ids_s, by_id = torch.sort(ids[by_d2], stable=True)
+        order = by_d2[by_id]
+        cols_s = torch.cat([pos, vals], dim=1)[order]            # (N, 3 + V)
     new_seg = ids_s[1:] != ids_s[:-1]
     rank_mask = torch.cat([new_seg.new_ones(1), new_seg])         # rank 0
     chans = []
@@ -312,57 +314,65 @@ def nn_gather_grid(
     # pre-merged mode uses only rank 0 of the finest level; coarser
     # levels regain n_seeds ranks from the 8 children of each block
     k_fine = 1 if premerge else n_seeds
-    seeds = {n_grid: _seed_grids_vals(pos, vals, n_grid, box_size, k_fine,
-                                      valid=valid)}
+    with span("vpower.nn.seeds"):
+        seeds = {n_grid: _seed_grids_vals(pos, vals, n_grid, box_size,
+                                          k_fine, valid=valid)}
     n_ch = seeds[n_grid].shape[1]
     for n in levels[1:]:
-        pd2 = _parent_dist2(n * 2, box_size, periodic, dtype, pos.device)
-        seeds[n] = _pool_seeds_vals(seeds[n * 2], pd2, n_seeds, big)
+        with span("vpower.nn.pool", n):
+            pd2 = _parent_dist2(n * 2, box_size, periodic, dtype, pos.device)
+            seeds[n] = _pool_seeds_vals(seeds[n * 2], pd2, n_seeds, big)
 
     n0 = levels[-1]
-    state = _coarsest_exact_vals(seeds[n0], n0, box_size, periodic, big)
+    with span("vpower.nn.coarsest"):
+        state = _coarsest_exact_vals(seeds[n0], n0, box_size, periodic, big)
 
     for n in reversed(levels[:-1]):
-        sc = seeds.pop(n)
-        dist2 = _make_dist2(n, box_size, periodic, dtype, pos.device)
-        if n == n_grid and premerge:
-            occ_any = torch.amax(sc[0, -1])
-            st = _premerge_upsampled(state[0][:-1], sc[0], n, box_size,
-                                     periodic, big)
-            del sc
+        with span("vpower.nn.sweep", n):
+            sc = seeds.pop(n)
+            dist2 = _make_dist2(n, box_size, periodic, dtype, pos.device)
+            if n == n_grid and premerge:
+                occ_any = torch.amax(sc[0, -1])
+                st = _premerge_upsampled(state[0][:-1], sc[0], n, box_size,
+                                         periodic, big)
+                del sc
+                if _jacobi_level(n):
+                    # rounds + 1 state-only passes, the last emitting
+                    # payload (and the best d2 as one more channel)
+                    pay = sweep_tiles_vals(st, None, box_size,
+                                           periodic=periodic, has_occ=False,
+                                           payload_out=True,
+                                           d2_out=return_d2, iters=rounds + 1)
+                    if return_d2:
+                        return pay[:-1], occ_any, pay[-1]
+                else:
+                    for _ in range(rounds + 1):
+                        st = _sweep_state_xla(st, dist2, _level_shifts(1))
+                    pay = st[3:]
+                    if return_d2:
+                        return pay, occ_any, dist2(st)
+                return pay, occ_any
+            ch = _upsample_cube(state[0])
             if _jacobi_level(n):
-                # rounds + 1 state-only passes, the last emitting payload
-                # (and the best d2 as one more channel)
-                pay = sweep_tiles_vals(st, None, box_size, periodic=periodic,
-                                       has_occ=False, payload_out=True,
-                                       d2_out=return_d2, iters=rounds + 1)
-                if return_d2:
-                    return pay[:-1], occ_any, pay[-1]
+                # only pass 1 reads the seed fields: later passes could
+                # never take a seed again (strict-less min over the same
+                # offsets, scored against the same centres)
+                ch = sweep_tiles_vals(
+                    ch, sc.reshape(sc.shape[0] * n_ch, n, n, n), box_size,
+                    periodic=periodic, iters=1)
+                if rounds > 0:
+                    ch = sweep_tiles_vals(ch, None, box_size,
+                                          periodic=periodic, iters=rounds)
+                state = (ch, None)
             else:
-                for _ in range(rounds + 1):
-                    st = _sweep_state_xla(st, dist2, _level_shifts(1))
-                pay = st[3:]
-                if return_d2:
-                    return pay, occ_any, dist2(st)
-            return pay, occ_any
-        ch = _upsample_cube(state[0])
-        if _jacobi_level(n):
-            # only pass 1 reads the seed fields: later passes could never
-            # take a seed again (strict-less min over the same offsets,
-            # scored against the same centres)
-            ch = sweep_tiles_vals(ch, sc.reshape(sc.shape[0] * n_ch, n, n, n),
-                                  box_size, periodic=periodic, iters=1)
-            if rounds > 0:
-                ch = sweep_tiles_vals(ch, None, box_size, periodic=periodic,
-                                      iters=rounds)
-            state = (ch, None)
-        else:
-            d = torch.where(ch[-1] > 0.5, dist2(ch), big)
-            for r in range(sc.shape[0]):
-                cd = torch.where(sc[r, -1] > 0.5, dist2(sc[r]), big)
-                take = cd < d
-                ch, d = torch.where(take, sc[r], ch), torch.where(take, cd, d)
-            state = _sweep_vals((ch, d), dist2, big, _level_shifts(rounds), sc)
+                d = torch.where(ch[-1] > 0.5, dist2(ch), big)
+                for r in range(sc.shape[0]):
+                    cd = torch.where(sc[r, -1] > 0.5, dist2(sc[r]), big)
+                    take = cd < d
+                    ch, d = (torch.where(take, sc[r], ch),
+                             torch.where(take, cd, d))
+                state = _sweep_vals((ch, d), dist2, big,
+                                    _level_shifts(rounds), sc)
 
     occ = torch.amax(state[0][-1])
     if return_d2:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.arith import div
+from ..utils.profiling import span
 from .sorted_scatter import deposit_offsets_rolled, deposit_sorted_cube
 
 __all__ = ["cell_index", "deposit_cic", "deposit_ngp", "sort_by_cell"]
@@ -34,8 +35,9 @@ def sort_by_cell(pos: torch.Tensor, *arrays: torch.Tensor, n_grid: int,
     """Stable sort of particles by flat cell id.  Returns
     ``(cell_ids_sorted, order, pos_sorted, *arrays_sorted)``."""
     ids = cell_index(pos, n_grid, box_size)
-    sids, order = torch.sort(ids, stable=True)
-    return (sids, order, pos[order]) + tuple(a[order] for a in arrays)
+    with span("vpower.deposit.sort"):
+        sids, order = torch.sort(ids, stable=True)
+        return (sids, order, pos[order]) + tuple(a[order] for a in arrays)
 
 
 def deposit_ngp(pos: torch.Tensor, values: torch.Tensor, n_grid: int,
@@ -72,9 +74,10 @@ def deposit_cic(pos: torch.Tensor, values: torch.Tensor, n_grid: int,
     base, frac = _cic_base_frac(pos, n_grid, box_size)
     bw = torch.remainder(base, n_grid)
     ids = (bw[:, 0] * n_grid + bw[:, 1]) * n_grid + bw[:, 2]
-    sids, order = torch.sort(ids, stable=True)
-    svals = vals2[order].contiguous()
-    sfrac = frac[order]
+    with span("vpower.deposit.sort"):
+        sids, order = torch.sort(ids, stable=True)
+        svals = vals2[order].contiguous()
+        sfrac = frac[order]
     fx, fy, fz = sfrac[:, 0], sfrac[:, 1], sfrac[:, 2]
 
     def corner_weight(d):

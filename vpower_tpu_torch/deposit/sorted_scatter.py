@@ -29,6 +29,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["deposit_sorted", "deposit_sorted_cube", "deposit_sorted_plain",
            "deposit_offsets_rolled", "snake_offsets", "LAUNCHES"]
 
@@ -159,7 +161,8 @@ def deposit_offsets_rolled(sids: torch.Tensor, svals: torch.Tensor,
         if prev is not None:
             for ax, s in enumerate(p - c for p, c in zip(prev, d)):
                 if s:
-                    acc = torch.roll(acc, s, dims=1 + ax)
+                    with span("vpower.deposit.roll"):
+                        acc = torch.roll(acc, s, dims=1 + ax)
         w = weight_fn(d)
         acc = deposit_sorted(
             sids, (svals * w[:, None]).contiguous(), n_grid**3,
@@ -168,5 +171,6 @@ def deposit_offsets_rolled(sids: torch.Tensor, svals: torch.Tensor,
         prev = d
     for ax, s in enumerate(prev):
         if s:
-            acc = torch.roll(acc, s, dims=1 + ax)
+            with span("vpower.deposit.roll"):
+                acc = torch.roll(acc, s, dims=1 + ax)
     return acc

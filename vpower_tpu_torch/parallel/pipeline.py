@@ -49,6 +49,7 @@ from ..run.pipeline import _interlace_angle, _mode_window, _phased_values
 from ..spectrum.power import _power, default_k_bins, power_norm, \
     shell_bin_local
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
+from ..utils.profiling import span
 from .deposit import (
     deposit_cic_sharded,
     deposit_ngp_local,
@@ -218,22 +219,24 @@ def _sharded_inputs(particles: Particles, mesh, n_grid: int, fold_m: int,
     """Owner-bucketed particles, bucketed on the host
     (:func:`~.deposit.shard_particles_host`): ``(pos, values)``, one
     (Pmax, 3) and one (Pmax, C) tensor a local entry, on its device."""
-    pos = particles.pos.detach().cpu().numpy()
-    vel = particles.vel.detach().cpu().numpy()
-    mass = particles.mass.detach().cpu().numpy()
-    if momentum_only:
-        values = vel * mass[:, None]
-    else:
-        values = np.concatenate([vel * mass[:, None], mass[:, None]], axis=1)
-    px, py = mesh.devices.shape
-    pos_sh, val_sh = shard_particles_host(
-        pos, values, (px, py), n_grid, float(particles.box_size),
-        fold_m=fold_m, method=method)
-    pos_sh = pos_sh.reshape(px * py, *pos_sh.shape[2:])
-    val_sh = val_sh.reshape(px * py, *val_sh.shape[2:])
-    entries = _local_entries(mesh)
-    return ([torch.from_numpy(pos_sh[g]).to(d) for g, d in entries],
-            [torch.from_numpy(val_sh[g]).to(d) for g, d in entries])
+    with span("vpower.mesh.bucketing"):
+        pos = particles.pos.detach().cpu().numpy()
+        vel = particles.vel.detach().cpu().numpy()
+        mass = particles.mass.detach().cpu().numpy()
+        if momentum_only:
+            values = vel * mass[:, None]
+        else:
+            values = np.concatenate([vel * mass[:, None], mass[:, None]],
+                                    axis=1)
+        px, py = mesh.devices.shape
+        pos_sh, val_sh = shard_particles_host(
+            pos, values, (px, py), n_grid, float(particles.box_size),
+            fold_m=fold_m, method=method)
+        pos_sh = pos_sh.reshape(px * py, *pos_sh.shape[2:])
+        val_sh = val_sh.reshape(px * py, *val_sh.shape[2:])
+        entries = _local_entries(mesh)
+        return ([torch.from_numpy(pos_sh[g]).to(d) for g, d in entries],
+                [torch.from_numpy(val_sh[g]).to(d) for g, d in entries])
 
 
 def _k_bins(box_size, n_grid, fold_m, kmin, kmax, spacing):

@@ -24,6 +24,7 @@ from ..deposit.sorted_scatter import deposit_sorted
 from ..spectrum import fold as fold_mod
 from ..spectrum import power as power_mod
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
+from ..utils.profiling import span
 
 __all__ = [
     "deposit",
@@ -146,42 +147,49 @@ def power_spectrum(
     deposits a second grid from positions shifted by half a cell and
     combines the two transforms to cancel odd aliasing images (scatter
     methods only); ``compensate`` deconvolves the NGP/CIC window."""
-    comp_order = {"ngp": 1, "cic": 2}.get(method, 0) if compensate else 0
-    if compensate and comp_order == 0:
-        raise ValueError("compensate=True is defined for ngp/cic only")
-    if method == "nn" and quantity == "velocity" and not interlace \
-            and not deposit_kwargs.get("exact", False):
-        from ..deposit.nn import nn_velocity_grid
+    with span("vpower.power_spectrum"):
+        comp_order = {"ngp": 1, "cic": 2}.get(method, 0) if compensate else 0
+        if compensate and comp_order == 0:
+            raise ValueError("compensate=True is defined for ngp/cic only")
+        if method == "nn" and quantity == "velocity" and not interlace \
+                and not deposit_kwargs.get("exact", False):
+            from ..deposit.nn import nn_velocity_grid
 
-        v = nn_velocity_grid(particles, n_grid,
-                             periodic=deposit_kwargs.get("periodic", True))
-        k, psum, nsample = power_mod.real_power_binned(
-            v, particles.box_size, kmin=kmin, kmax=kmax, spacing=spacing
-        )
+            with span("vpower.deposit"):
+                v = nn_velocity_grid(
+                    particles, n_grid,
+                    periodic=deposit_kwargs.get("periodic", True))
+            k, psum, nsample = power_mod.real_power_binned(
+                v, particles.box_size, kmin=kmin, kmax=kmax, spacing=spacing
+            )
+            return PowerSpectrum.from_binned(k, psum, nsample)
+        if not interlace:
+            with span("vpower.deposit"):
+                field = deposit(particles, n_grid, method=method,
+                                **deposit_kwargs)
+            return spectrum_from_field(field, quantity=quantity, kmin=kmin,
+                                       kmax=kmax, spacing=spacing,
+                                       compensate_order=comp_order)
+        if method not in ("ngp", "cic"):
+            raise ValueError("interlace=True is defined for scatter methods")
+        cell = particles.box_size / n_grid
+        shifted = dataclasses.replace(
+            particles,
+            pos=torch.remainder(particles.pos + cell / 2, particles.box_size))
+        with span("vpower.deposit"):
+            f1 = _deposit_scatter(particles, n_grid, method)
+        with span("vpower.deposit"):
+            f2 = _deposit_scatter(shifted, n_grid, method)
+        d1, d2 = _quantity_grid(f1, quantity), _quantity_grid(f2, quantity)
+        if d1.ndim == 3:
+            d1, d2 = d1[None], d2[None]
+        p_grid = power_mod.interlaced_vector_power(d1, d2, f1.box_size)
+        if comp_order > 0:
+            p_grid = p_grid * power_mod.window_compensation(
+                n_grid, comp_order, dtype=p_grid.dtype, device=p_grid.device)
+        k, psum, nsample = power_mod.shell_bin(
+            p_grid, f1.box_size, kmin=kmin, kmax=kmax, spacing=spacing)
         return PowerSpectrum.from_binned(k, psum, nsample)
-    if not interlace:
-        field = deposit(particles, n_grid, method=method, **deposit_kwargs)
-        return spectrum_from_field(field, quantity=quantity, kmin=kmin,
-                                   kmax=kmax, spacing=spacing,
-                                   compensate_order=comp_order)
-    if method not in ("ngp", "cic"):
-        raise ValueError("interlace=True is defined for scatter methods")
-    cell = particles.box_size / n_grid
-    shifted = dataclasses.replace(
-        particles,
-        pos=torch.remainder(particles.pos + cell / 2, particles.box_size))
-    f1 = _deposit_scatter(particles, n_grid, method)
-    f2 = _deposit_scatter(shifted, n_grid, method)
-    d1, d2 = _quantity_grid(f1, quantity), _quantity_grid(f2, quantity)
-    if d1.ndim == 3:
-        d1, d2 = d1[None], d2[None]
-    p_grid = power_mod.interlaced_vector_power(d1, d2, f1.box_size)
-    if comp_order > 0:
-        p_grid = p_grid * power_mod.window_compensation(
-            n_grid, comp_order, dtype=p_grid.dtype, device=p_grid.device)
-    k, psum, nsample = power_mod.shell_bin(
-        p_grid, f1.box_size, kmin=kmin, kmax=kmax, spacing=spacing)
-    return PowerSpectrum.from_binned(k, psum, nsample)
 
 
 # ---------------------------------------------------------------------- #
@@ -251,9 +259,11 @@ def _fold_targets(pos: torch.Tensor, values: torch.Tensor, m: int,
     indices (T, 3) int32)``, each contiguous."""
     ids, vals, idx_full = fold_mod.fold_scatter_targets(
         pos, values, m, box_size, n_grid, method=method)
-    ids_s, order = torch.sort(ids, stable=True)
-    return (ids_s.contiguous(), vals[order].to(torch.float32).contiguous(),
-            idx_full[order].contiguous())
+    with span("vpower.deposit.sort"):
+        ids_s, order = torch.sort(ids, stable=True)
+        return (ids_s.contiguous(),
+                vals[order].to(torch.float32).contiguous(),
+                idx_full[order].contiguous())
 
 
 def _phased_values(beta: Tuple[int, int, int], vals_s: torch.Tensor,
@@ -327,10 +337,13 @@ def _fused_fold_sweep(
     comp_order = {"ngp": 1, "cic": 2}[method] if compensate else 0
     dev = particles.pos.device
     values = particles.vel * particles.mass[:, None]
-    tgt = [_fold_targets(particles.pos, values, m, box, n_grid, method)]
+    with span("vpower.deposit"):
+        tgt = [_fold_targets(particles.pos, values, m, box, n_grid, method)]
     if interlace:
         shifted = torch.remainder(particles.pos + box / n_total / 2.0, box)
-        tgt.append(_fold_targets(shifted, values, m, box, n_grid, method))
+        with span("vpower.deposit"):
+            tgt.append(_fold_targets(shifted, values, m, box, n_grid,
+                                     method))
     del values
 
     kmin = 2.0 * math.pi / box
@@ -339,11 +352,13 @@ def _fused_fold_sweep(
     nsamp_acc = torch.zeros(n_bins, dtype=torch.float64, device=dev)
     for beta in betas:
         beta = tuple(int(b) for b in beta)
-        grid = _fold_grid(beta, tgt[0], n_grid, n_total)
+        with span("vpower.deposit"):
+            grid = _fold_grid(beta, tgt[0], n_grid, n_total)
         # global per-axis modes K_a = m t_a + beta_a (signed t)
         kf = [m * wrapped + float(beta[a]) for a in range(3)]
         if interlace:
-            grid2 = _fold_grid(beta, tgt[1], n_grid, n_total)
+            with span("vpower.deposit"):
+                grid2 = _fold_grid(beta, tgt[1], n_grid, n_total)
             p_grid = power_mod.interlaced_power_from_complex(
                 grid, grid2, folded_box, _interlace_angle(kf, n_total))
             del grid2
@@ -355,10 +370,11 @@ def _fused_fold_sweep(
             p_grid = p_grid / (w * w)
         kshift = div(torch.tensor(beta, dtype=torch.float32, device=dev)
                      * (2.0 * math.pi), box)
-        bins = power_mod.bin_grid_local(
-            p_grid.shape, n_grid, folded_box, kmin, kmin, n_bins, (0, 0, 0),
-            kshift, dtype=p_grid.dtype, device=dev)
-        psum, nsamp = power_mod._cascade_bin(p_grid, bins, n_bins)
+        with span("vpower.binning"):
+            bins = power_mod.bin_grid_local(
+                p_grid.shape, n_grid, folded_box, kmin, kmin, n_bins,
+                (0, 0, 0), kshift, dtype=p_grid.dtype, device=dev)
+            psum, nsamp = power_mod._cascade_bin(p_grid, bins, n_bins)
         del p_grid, bins
         psum_acc += psum.double()
         nsamp_acc += nsamp.double()
@@ -389,13 +405,14 @@ def fused_fold_full_spectrum(
     memory.  ``beta_batch`` is accepted for the JAX package's signature
     (there it bounds one device program's length); here every beta runs
     in one loop and the partial sums add in float64 on the device."""
-    if beta_sequence is None:
-        beta_sequence = init_beta_space(m)
-    k, psum, nsamp = _fused_fold_sweep(
-        particles, np.asarray(beta_sequence, np.int64).tolist(), int(n_grid),
-        int(m), _fold_bins(particles.box_size, m * n_grid), method=method,
-        interlace=interlace, compensate=compensate)
-    return PowerSpectrum.from_binned(k, psum, nsamp, m=int(m))
+    with span("vpower.fused_fold"):
+        if beta_sequence is None:
+            beta_sequence = init_beta_space(m)
+        k, psum, nsamp = _fused_fold_sweep(
+            particles, np.asarray(beta_sequence, np.int64).tolist(),
+            int(n_grid), int(m), _fold_bins(particles.box_size, m * n_grid),
+            method=method, interlace=interlace, compensate=compensate)
+        return PowerSpectrum.from_binned(k, psum, nsamp, m=int(m))
 
 
 def fused_fold_spectrum(
@@ -411,9 +428,11 @@ def fused_fold_spectrum(
     into the deposit (``method`` ngp | cic).  ``n_grid`` is the size of
     the FOLDED grid, so memory is O(n_grid^3) whatever the range ``m *
     n_grid``."""
-    beta = tuple(int(b) for b in beta)
-    k, psum, nsample = _fused_fold_sweep(
-        particles, [beta], int(n_grid), int(m),
-        _fold_bins(particles.box_size, m * n_grid), method=method,
-        interlace=interlace, compensate=compensate)
-    return PowerSpectrum.from_binned(k, psum, nsample, m=int(m), beta=beta)
+    with span("vpower.fused_fold"):
+        beta = tuple(int(b) for b in beta)
+        k, psum, nsample = _fused_fold_sweep(
+            particles, [beta], int(n_grid), int(m),
+            _fold_bins(particles.box_size, m * n_grid), method=method,
+            interlace=interlace, compensate=compensate)
+        return PowerSpectrum.from_binned(k, psum, nsample, m=int(m),
+                                         beta=beta)

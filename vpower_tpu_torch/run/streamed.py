@@ -67,6 +67,7 @@ from ..deposit.sorted_scatter import deposit_sorted
 from ..spectrum import power as power_mod
 from ..spectrum.fold import get_phase
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
+from ..utils.profiling import span
 
 __all__ = ["streamed_folded_sweep", "streamed_folded_spectrum"]
 
@@ -913,10 +914,11 @@ def streamed_folded_sweep(
 
         def block_values(q: int):
             s0 = int(starts[q])
-            return _block_values_at(
-                rows_d[s0:s0 + pad].to(devices[q % n_dev]), int(counts[q]),
-                n_grid, n_ext, margin_cells, cell_total, quantity, exact,
-                certify)
+            with span("vpower.streamed.block", q):
+                return _block_values_at(
+                    rows_d[s0:s0 + pad].to(devices[q % n_dev]),
+                    int(counts[q]), n_grid, n_ext, margin_cells, cell_total,
+                    quantity, exact, certify)
 
         def escalate_block(q: int):
             return _escalate_block(particles, q, m, n_grid, margin_cells,
@@ -930,9 +932,10 @@ def streamed_folded_sweep(
         h_d = particles.smoothing_length() if method == "sph" else None
 
         def block_values(q: int):
-            return _scatter_block_values(
-                pos_d, vel_d, mass_d, _block_q3(q, m), n_grid, n_total, box,
-                method, quantity, h=h_d).reshape(n_ch, n_grid**3)
+            with span("vpower.streamed.block", q):
+                return _scatter_block_values(
+                    pos_d, vel_d, mass_d, _block_q3(q, m), n_grid, n_total,
+                    box, method, quantity, h=h_d).reshape(n_ch, n_grid**3)
 
     else:
         raise ValueError(

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..core.arith import div
+from ..utils.profiling import span
 
 __all__ = [
     "power_norm",
@@ -79,16 +80,18 @@ def vector_power_rfft(v: torch.Tensor, box_size: float) -> torch.Tensor:
     vector field via ``rfftn``; bin with :func:`shell_bin_rfft`."""
     a = power_norm(box_size, v.shape[-1])
     acc = None
-    for c in range(v.shape[0]):
-        p = _power(torch.fft.rfftn(v[c]))
-        acc = p if acc is None else acc + p
-    return acc * (a * a)
+    with span("vpower.fft"):
+        for c in range(v.shape[0]):
+            p = _power(torch.fft.rfftn(v[c]))
+            acc = p if acc is None else acc + p
+        return acc * (a * a)
 
 
 def scalar_power_rfft(f: torch.Tensor, box_size: float) -> torch.Tensor:
     """Half-space power grid of a real (N, N, N) scalar field."""
     a = power_norm(box_size, f.shape[0])
-    return _power(torch.fft.rfftn(f)) * (a * a)
+    with span("vpower.fft"):
+        return _power(torch.fft.rfftn(f)) * (a * a)
 
 
 def vector_power_from_complex(f: torch.Tensor, box_size: float) -> torch.Tensor:
@@ -96,17 +99,19 @@ def vector_power_from_complex(f: torch.Tensor, box_size: float) -> torch.Tensor:
     boxes; reference ``_FFTW_vector_power``, ``interp.py:1390-1405``)."""
     a = power_norm(box_size, f.shape[-1])
     acc = None
-    for c in range(f.shape[0]):
-        p = _power(torch.fft.fftn(f[c]))
-        acc = p if acc is None else acc + p
-    return acc * (a * a)
+    with span("vpower.fft"):
+        for c in range(f.shape[0]):
+            p = _power(torch.fft.fftn(f[c]))
+            acc = p if acc is None else acc + p
+        return acc * (a * a)
 
 
 def scalar_power_from_complex(f: torch.Tensor, box_size: float) -> torch.Tensor:
     """Power grid of a complex (N, N, N) field (reference
     ``_FFTW_scalar_power``, ``interp.py:1424-1437``)."""
     a = power_norm(box_size, f.shape[0])
-    return _power(torch.fft.fftn(f)) * (a * a)
+    with span("vpower.fft"):
+        return _power(torch.fft.fftn(f)) * (a * a)
 
 
 def cross_power(a: torch.Tensor, b: torch.Tensor,
@@ -135,13 +140,15 @@ def _interlaced(f1: torch.Tensor, f2: torch.Tensor, box_size: float,
     rotated back by ``e^{+i theta}``.  The JAX package rotates by
     ``e^{-i theta}`` (ROADMAP fault F8)."""
     a = power_norm(box_size, f1.shape[-1])
-    phase = torch.complex(torch.cos(theta), torch.sin(theta))
-    acc = None
-    for c in range(f1.shape[0]):
-        fk = 0.5 * (torch.fft.fftn(f1[c]) + phase * torch.fft.fftn(f2[c]))
-        p = _power(fk)
-        acc = p if acc is None else acc + p
-    return acc * (a * a)
+    with span("vpower.fft"):
+        phase = torch.complex(torch.cos(theta), torch.sin(theta))
+        acc = None
+        for c in range(f1.shape[0]):
+            fk = 0.5 * (torch.fft.fftn(f1[c])
+                        + phase * torch.fft.fftn(f2[c]))
+            p = _power(fk)
+            acc = p if acc is None else acc + p
+        return acc * (a * a)
 
 
 def interlaced_vector_power(v: torch.Tensor, v_shifted: torch.Tensor,
@@ -288,15 +295,15 @@ def bin_grid_local(
     the full (n_full)^3 lattice, so blocks bin onto one global bin set.
     ``kshift`` is three floats (each rounded once to ``dtype``) or a
     (3,) tensor already in ``dtype``."""
-    ks = _axis_freqs(n_full, box_size, dtype, device)
-    if not isinstance(kshift, torch.Tensor):
-        kshift = torch.tensor(kshift, dtype=dtype, device=device)
-    kx, ky, kz = (ks[int(starts[i]):int(starts[i]) + local_shape[i]]
-                  + kshift[i] for i in range(3))
-    k = torch.sqrt(
-        (kx**2)[:, None, None] + (ky**2)[None, :, None] + (kz**2)[None, None, :]
-    )
-    return _bin_index(k, kmin, spacing, n_bins)
+    with span("vpower.binning.lattice"):
+        ks = _axis_freqs(n_full, box_size, dtype, device)
+        if not isinstance(kshift, torch.Tensor):
+            kshift = torch.tensor(kshift, dtype=dtype, device=device)
+        kx, ky, kz = (ks[int(starts[i]):int(starts[i]) + local_shape[i]]
+                      + kshift[i] for i in range(3))
+        k = torch.sqrt((kx**2)[:, None, None] + (ky**2)[None, :, None]
+                       + (kz**2)[None, None, :])
+        return _bin_index(k, kmin, spacing, n_bins)
 
 
 def _cascade_bin(power: torch.Tensor, bins: torch.Tensor, n_bins: int,
@@ -356,18 +363,19 @@ def shell_bin_rfft(
     kmin, kmax, spacing, n_bins = default_k_bins(
         box_size, box_size / n_grid, kmin, kmax, spacing
     )
-    ks = _axis_freqs(n_grid, box_size, dtype, device)
-    nz = n_grid // 2 + 1
-    # rfft keeps kz >= 0; the even-N Nyquist plane has |k| = |fftfreq|
-    kz = torch.abs(ks[:nz])
-    k = torch.sqrt(
-        (ks**2)[:, None, None] + (ks**2)[None, :, None] + (kz**2)[None, None, :]
-    )
-    bins = _bin_index(k, kmin, spacing, n_bins)
-    w = hermitian_weights(n_grid, dtype, device)
-    psum, nsample = _cascade_bin(power_half, bins, n_bins, weights=w)
-    k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
-                                              device=device)
+    with span("vpower.binning"):
+        with span("vpower.binning.lattice"):
+            ks = _axis_freqs(n_grid, box_size, dtype, device)
+            nz = n_grid // 2 + 1
+            # rfft keeps kz >= 0; the even-N Nyquist plane has |k| = |fftfreq|
+            kz = torch.abs(ks[:nz])
+            k = torch.sqrt((ks**2)[:, None, None] + (ks**2)[None, :, None]
+                           + (kz**2)[None, None, :])
+            bins = _bin_index(k, kmin, spacing, n_bins)
+            w = hermitian_weights(n_grid, dtype, device)
+        psum, nsample = _cascade_bin(power_half, bins, n_bins, weights=w)
+        k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
+                                                  device=device)
     return k_centers, psum, nsample
 
 
@@ -387,11 +395,12 @@ def shell_bin(
     kmin, kmax, spacing, n_bins = default_k_bins(
         box_size, box_size / n_grid, kmin, kmax, spacing
     )
-    bins = bin_grid(n_grid, box_size, kmin, spacing, n_bins, kshift,
-                    dtype=dtype, device=device)
-    psum, nsample = _cascade_bin(power, bins, n_bins)
-    k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
-                                              device=device)
+    with span("vpower.binning"):
+        bins = bin_grid(n_grid, box_size, kmin, spacing, n_bins, kshift,
+                        dtype=dtype, device=device)
+        psum, nsample = _cascade_bin(power, bins, n_bins)
+        k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
+                                                  device=device)
     return k_centers, psum, nsample
 
 
@@ -411,9 +420,11 @@ def shell_bin_local(
     kmin, kmax, spacing, n_bins = default_k_bins(
         box_size, box_size / n_full, kmin, kmax, spacing
     )
-    bins = bin_grid_local(power_local.shape, n_full, box_size, kmin, spacing,
-                          n_bins, starts, kshift, dtype=dtype, device=device)
-    psum, nsample = _cascade_bin(power_local, bins, n_bins)
-    k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
-                                              device=device)
+    with span("vpower.binning"):
+        bins = bin_grid_local(power_local.shape, n_full, box_size, kmin,
+                              spacing, n_bins, starts, kshift, dtype=dtype,
+                              device=device)
+        psum, nsample = _cascade_bin(power_local, bins, n_bins)
+        k_centers = kmin + spacing * torch.arange(n_bins, dtype=dtype,
+                                                  device=device)
     return k_centers, psum, nsample

@@ -1,4 +1,5 @@
-from .profiling import StageTimer, Progress, trace, sync, log
+from .profiling import (StageTimer, Progress, trace, sync, log, span,
+                        span_report)
 from .checks import ConservationReport, check_conservation
 from .plotting import (
     plot_density_slice,
@@ -10,7 +11,7 @@ from .plotting import (
 
 __all__ = [
     "ConservationReport", "check_conservation",
-    "StageTimer", "Progress", "trace", "sync", "log",
+    "StageTimer", "Progress", "trace", "sync", "log", "span", "span_report",
     "plot_density_slice", "plot_velocity_slice", "peek_field",
     "plot_spectrum", "peek_spectrum",
 ]

@@ -10,18 +10,96 @@ names and output:
   TensorBoard-compatible trace directory (JSON, no tensorboard package
   needed);
 * :class:`Progress` — rank-0-style stage-weighted progress printing
-  (the reference's tqdm usage, ``parallel_optimized.py:263, 314, 384``).
+  (the reference's tqdm usage, ``parallel_optimized.py:263, 314, 384``);
+* :func:`span` and :func:`span_report` — the program's own named spans.
+
+Spans.  Each layer and stage of the port runs inside ``span(name)``,
+named ``vpower.<layer>[.<stage>]``: the entries
+(``vpower.power_spectrum``, ``vpower.fused_fold``), ``vpower.deposit``
+with ``vpower.deposit.sort`` and ``vpower.deposit.roll``, the NN
+descent's ``vpower.nn.seeds``, ``vpower.nn.pool``,
+``vpower.nn.coarsest`` and ``vpower.nn.sweep`` (one a level, the level
+size in ``args``), ``vpower.fft``, ``vpower.binning`` with
+``vpower.binning.lattice``, ``vpower.streamed.block`` (the block index
+in ``args``) and ``vpower.mesh.bucketing``.  With no profiler
+recording, ``span`` returns one shared no-op context (no clock read, no
+allocation).  While a ``torch.profiler`` records, a span is a
+``record_function`` on the profiler's clock, so the trace puts device
+work and idle gaps under it, and its host wall time is added to an
+in-memory record::
+
+    with profiling.trace("trace_dir"):
+        power_spectrum(particles, 512, method="nn")
+    for name, (count, seconds) in profiling.span_report().items():
+        print(name, count, seconds)
+
+The host times include the profiler's own cost per operation, so they
+compare two versions traced alike, not a traced call with an untraced
+one.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 
-__all__ = ["StageTimer", "trace", "Progress", "sync", "log"]
+__all__ = ["StageTimer", "trace", "Progress", "sync", "log", "span",
+           "span_report"]
+
+_NOOP = contextlib.nullcontext()
+# name -> [count, host seconds] of the spans closed while a profiler
+# recorded
+_RECORD: Dict[str, List] = {}
+_RECORD_LOCK = threading.Lock()
+
+
+class _Span:
+    """A span while a profiler records: ``record_function(name, args)``
+    and the host wall time between enter and exit."""
+
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str, args: Optional[str]):
+        self.name = name
+        self.rf = torch.profiler.record_function(name, args)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.rf.__exit__(*exc)
+        with _RECORD_LOCK:
+            rec = _RECORD.setdefault(self.name, [0, 0.0])
+            rec[0] += 1
+            rec[1] += dt
+        return False
+
+
+def span(name: str, args=None):
+    """The context of one named span (module note): the shared no-op
+    unless a profiler is recording.  ``args`` (e.g. a level size) is
+    attached to the trace event as a string."""
+    if not _profiler_enabled():
+        return _NOOP
+    return _Span(name, None if args is None else str(args))
+
+
+def span_report(clear: bool = False) -> Dict[str, Tuple[int, float]]:
+    """``name -> (count, host seconds)`` of the spans closed while a
+    profiler recorded, since the start or the last ``clear``."""
+    with _RECORD_LOCK:
+        out = {k: (v[0], v[1]) for k, v in _RECORD.items()}
+        if clear:
+            _RECORD.clear()
+    return out
 
 
 def _first_tensor(x):
