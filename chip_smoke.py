@@ -28,7 +28,7 @@ Phases (each prints a line; every failed check raises, so the exit code
 is non-zero):
 
 1. device: the card's name and power limit; TF32 matmuls must be off.
-2. build: ``nvcc`` builds the four kernels of ``vpower_tpu_torch/csrc``,
+2. build: ``nvcc`` builds the five kernels of ``vpower_tpu_torch/csrc``,
    one process each, all started together.
 3. K1 (sorted deposit) against its plain version on the path's inputs:
    the seed grid bitwise, the NGP sums within 1e-6 of a float64 plain
@@ -39,7 +39,13 @@ is non-zero):
    state-only ``iters=2`` ``payload_out``); times of both.
 5. the fast slice: launch counts of the main path's run; Nsample exact;
    Psum against host float64 chains (NGP within 1e-6, NN within 5e-3:
-   the gates of bench.py); NN misassignment on 2^18 random cells against
+   the gates of bench.py); the NN and CIC runs' K5 call (shell sums,
+   ``_cascade_bin``) against the one-hot version on its input (Nsample
+   bitwise, Psum within 5e-6), one K5 launch a spectrum, a second call
+   of each entry bitwise equal; K5 on the CIC run's 512 x 512 x 257
+   rfft grid (256 shells, Hermitian weights) against a float64
+   ``torch.bincount``, timed beside the one-hot version and the
+   bincount, and its bound; NN misassignment on 2^18 random cells against
    a scipy kd-tree, every miss within a cell diagonal; Parseval.
    CIC: ``power_spectrum(particles, 512)`` with the default method; its
    eight K1 calls (one a corner, each onto the rolled carry) bitwise
@@ -74,7 +80,10 @@ is non-zero):
    momentum at each target's full-resolution cell, folded; complex
    pocketfft; ``np.histogram`` of |2 pi (m t + beta) / L|).  Then the
    main path, ``fused_fold_full_spectrum(particles, 512, 2)`` (NGP, all 8
-   betas): launch counts, three timed runs after the warm-up, the stage
+   betas): launch counts, each beta's K5 call against the one-hot
+   version, a second call bitwise equal, K5 timed on the first beta's
+   full 512^3 grid (511 shells) as on the rfft grid, three timed runs
+   after the warm-up, the stage
    times of a fourth; and the folding identity: Nsample equal over all
    511 bins and Psum within 1e-4 of the unfolded 1024^3 momentum
    spectrum (``deposit_ngp`` of 3 channels, ``real_power_binned``).
@@ -231,10 +240,12 @@ streamed runs', the CLI's routes (``cli_*``), the mesh's runs
 interlaced phase's (``interlace``), by path under ``launches_by_path``,
 its fold, SPH, streamed, mesh scatter and interlaced calls under
 ``fold``, ``sph``, ``streamed``, ``scatter`` and ``interlace``; K2 and K4:
-also their streamed and mesh launches and their streamed calls), its
-largest error
-against the plain version, its time, the plain version's, the library
-call's (K1 only), and its bound: the larger
+also their streamed and mesh launches and their streamed calls; K5: its
+launches by path (the NN, CIC and fold runs, and every later phase's
+calls) and its two timed grids under ``calls``, the fold's on the entry
+itself), its largest error against the plain version (K5: the widest
+relative Psum gap), its time, the plain version's, the library call's
+(K1 and K5 only), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (the H100 SXM's published peaks), computed from this run's
 inputs.  K4's operations are counted on the live pairs, whose d2 is
@@ -320,6 +331,10 @@ INTERLACE_RTOL = 1e-5
 PLANE_N = 64             # [interlace] (f): a 64^3 CIC grid and a plane
 PLANE_K0 = 21            # wave of mode 21 along x (theta = 21 pi / 64)
 PLANE_RTOL = 1e-6        # its interlaced Psum over the plain one, less 1
+# K5's Psum against the one-hot version and a float64 bincount: float32
+# sums in another order (per-warp histograms, then float64 across the
+# CTAs' rows), ~2e-7 apart at the 512^3 grids
+K5_RTOL = 5e-6
 STREAM_SAMPLE = 1 << 16  # cells of one block against the kd-tree
 STREAM_IDLE_BLOCKS = 16  # blocks of the sweep under torch.profiler
 STREAM_ID_M = 2          # the folding identity: range 512 from 256^3
@@ -729,6 +744,92 @@ def _k3_bound(state_idx, state_pos, seed_idx, seed_pos, *_, **__):
     k = 0 if seed_idx is None else seed_idx.shape[0]
     return _bound(_nbytes(state_idx, state_pos, seed_idx, seed_pos)
                   + 20 * n3, n3 * (52 + 54 * k) * CAND_OPS)
+
+
+def _rel_gap(got, ref):
+    """Widest relative gap of ``got`` over the shells ``ref`` fills."""
+    sel = ref != 0
+    return float(((got.double() - ref.double()).abs()[sel]
+                  / ref.double().abs()[sel]).max())
+
+
+def _k5_hold(torch, shell_sums, where, first):
+    """``check`` of a ``_Capture`` of ``_cascade_bin``: each call's K5
+    sums against the plain version (the one-hot products) on the same
+    inputs, Nsample bitwise and Psum within K5_RTOL; the first call's
+    inputs are appended to ``first``.  ``check.worst`` holds the widest
+    Psum gap."""
+    def check(args, kwargs, out):
+        power, bins, n_bins = args[:3]
+        weights = args[3] if len(args) > 3 else kwargs.get("weights")
+        plain = shell_sums.shell_sums_plain(power, bins, n_bins, weights)
+        _check(torch.equal(out[1], plain[1]), f"[K5] {where}: Nsample "
+               f"differs from the one-hot version's")
+        gap = _rel_gap(out[0], plain[0])
+        check.worst = max(check.worst, gap)
+        _check(gap <= K5_RTOL, f"[K5] {where}: Psum {gap:.3e} off the "
+               f"one-hot version's")
+        if not first:
+            first.append((power, bins, n_bins, weights))
+
+    check.worst = 0.0
+    return check
+
+
+def _k5_row(torch, shell_sums, name, power, bins, n_bins, weights, smi):
+    """K5 on one captured ``_cascade_bin`` input: two calls bitwise,
+    Nsample equal to and Psum within K5_RTOL of ``torch.bincount`` in
+    float64; times of K5 (on the grid made contiguous: the wrapper's
+    copy of cuFFT's z-major rfft grid is timed apart), the plain
+    version and the float64 bincount (the library yardstick, never
+    called by the port), and the bound: the grid's power and ids read
+    once, the shells written once."""
+    grid = power.contiguous()
+
+    def k5():
+        return shell_sums.shell_sums(grid, bins, n_bins, weights)
+
+    one, two = k5(), k5()
+    same = torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    ids = bins.reshape(-1).long()
+    w64 = (torch.ones_like(grid, dtype=torch.float64) if weights is None
+           else weights.double().expand_as(grid)).reshape(-1)
+    pw64 = grid.reshape(-1).double() * w64
+
+    def library():
+        return (torch.bincount(ids, pw64, minlength=n_bins + 1),
+                torch.bincount(ids, w64, minlength=n_bins + 1))
+
+    lib = library()
+    gap = _rel_gap(one[0], lib[0][:n_bins])
+    counts = torch.equal(one[1].double(), lib[1][:n_bins])
+    _check(same and counts and gap <= K5_RTOL, f"[K5] {name}: two calls "
+           f"bitwise {same}, Nsample equal to bincount's {counts}, Psum "
+           f"{gap:.3e} off bincount's float64 sum")
+    ms = _time_ms(torch, k5, 20)
+    wrapper_ms = _time_ms(torch, lambda: shell_sums.shell_sums(
+        power, bins, n_bins, weights), 20)
+    plain_ms = _time_ms(torch, lambda: shell_sums.shell_sums_plain(
+        grid, bins, n_bins, weights), 3)
+    lib_ms = _time_ms(torch, library, 5)
+    bound = _bound(_nbytes(grid, bins, weights) + 2 * n_bins
+                   * grid.element_size(), 2 * grid.numel())
+    print(f"[K5] {name}, {n_bins} shells: two calls bitwise, Nsample equal "
+          f"to torch.bincount's, Psum {gap:.3e} off its float64 sum; kernel "
+          f"{ms:.4f} ms ({wrapper_ms:.4f} ms through the wrapper on the "
+          f"captured grid), bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{bound[0] / ms:.1%}; plain {plain_ms:.3f} ms, bincount float64 "
+          f"{lib_ms:.3f} ms on {smi}", flush=True)
+    return {"call": f"{name}, {n_bins} shells", "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+            "psum_rel_f64": gap}
+
+
+def _same_spectra(a, b):
+    """k, Psum and Nsample of two spectra bitwise equal."""
+    return all(np.array_equal(getattr(a, n), getattr(b, n))
+               for n in ("k", "Psum", "Nsample"))
 
 
 def _k4_live_pairs(torch, s0, s1, rows, state, n_grid, zc, n_pay, wrap,
@@ -2775,6 +2876,7 @@ def main():
                                           nn_window, sorted_scatter)
     from vpower_tpu_torch.deposit.scatter import sort_by_cell
     from vpower_tpu_torch.spectrum import power as power_mod
+    from vpower_tpu_torch.spectrum import shell_sums
     from vpower_tpu_torch.spectrum.power import (hermitian_weights,
                                                  vector_power_rfft)
 
@@ -2788,12 +2890,14 @@ def main():
     print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     _check(torch.backends.cuda.matmul.allow_tf32 is False,
-           "torch.backends.cuda.matmul.allow_tf32 must be False (a TF32 "
-           "one-hot binning would round Psum to ~3 digits)")
+           "torch.backends.cuda.matmul.allow_tf32 must be False (TF32 "
+           "would round the plain one-hot binning's Psum and the fold's "
+           "phase products to ~3 digits)")
 
     # ---- 2. build --------------------------------------------------
     t0 = time.perf_counter()
-    names = ("sorted_scatter", "nn_sweep", "nn_index_sweep", "window_sweep")
+    names = ("sorted_scatter", "nn_sweep", "nn_index_sweep", "window_sweep",
+             "shell_bin")
     logs = _build_all(names)
     print(f"[build] {len(names)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2910,15 +3014,26 @@ def main():
     # ---- 5. the slice ----------------------------------------------
     sorted_scatter.LAUNCHES = 0
     nn_sweep.LAUNCHES = 0
+    shell_sums.LAUNCHES = 0
     torch.cuda.synchronize()
-    spec_nn = vt.power_spectrum(particles, N_GRID, method="nn")
+    k5_nn = _k5_hold(torch, shell_sums, "NN", [])
+    with _Capture(power_mod, "_cascade_bin", check=k5_nn, record=False):
+        spec_nn = vt.power_spectrum(particles, N_GRID, method="nn")
     torch.cuda.synchronize()
     launches = {"sorted_scatter": sorted_scatter.LAUNCHES,
-                "nn_sweep": nn_sweep.LAUNCHES}
+                "nn_sweep": nn_sweep.LAUNCHES,
+                "shell_bin": shell_sums.LAUNCHES}
     print(f"[slice] NN run launches: K1 {launches['sorted_scatter']}, "
-          f"K2 {launches['nn_sweep']}", flush=True)
+          f"K2 {launches['nn_sweep']}, K5 {launches['shell_bin']} (its "
+          f"Nsample bitwise and Psum within {k5_nn.worst:.3e} of the "
+          f"one-hot version on its input)", flush=True)
     _check(launches["sorted_scatter"] >= 1, "NN run launched no K1")
     _check(launches["nn_sweep"] >= 5, "NN run launched fewer than 5 K2")
+    _check(launches["shell_bin"] == 1, "the NN run did not launch K5 once")
+    k5_paths = {"nn": launches["shell_bin"]}
+    _check(_same_spectra(spec_nn, vt.power_spectrum(particles, N_GRID,
+                                                    method="nn")),
+           "two NN spectra differ (k, Psum or Nsample)")
 
     sorted_scatter.LAUNCHES = 0
     field_ngp = vt.deposit(particles, N_GRID, method="ngp")
@@ -3059,13 +3174,29 @@ def main():
     torch.cuda.empty_cache()
 
     sorted_scatter.LAUNCHES = 0
+    shell_sums.LAUNCHES = 0
     torch.cuda.synchronize()
-    spec_cic = vt.power_spectrum(particles, N_GRID)
+    cic_bin = []
+    k5_cic = _k5_hold(torch, shell_sums, "CIC", cic_bin)
+    with _Capture(power_mod, "_cascade_bin", check=k5_cic, record=False):
+        spec_cic = vt.power_spectrum(particles, N_GRID)
     torch.cuda.synchronize()
-    print(f"[CIC] spectrum run launches: K1 {sorted_scatter.LAUNCHES}",
+    k5_paths["cic"] = shell_sums.LAUNCHES
+    print(f"[CIC] spectrum run launches: K1 {sorted_scatter.LAUNCHES}, K5 "
+          f"{shell_sums.LAUNCHES} (its Nsample bitwise and Psum within "
+          f"{k5_cic.worst:.3e} of the one-hot version on its input)",
           flush=True)
     _check(sorted_scatter.LAUNCHES == 8, "the CIC run did not launch K1 "
            "once a corner")
+    _check(shell_sums.LAUNCHES == 1, "the CIC run did not launch K5 once")
+    _check(_same_spectra(spec_cic, vt.power_spectrum(particles, N_GRID)),
+           "two CIC spectra differ (k, Psum or Nsample)")
+    # K5 on the rfft half grid (512 x 512 x 257, Hermitian weights)
+    shape = "x".join(map(str, cic_bin[0][0].shape))
+    k5_rows = [_k5_row(torch, shell_sums, f"CIC rfft {shape}", *cic_bin[0],
+                       smi)]
+    del cic_bin
+    torch.cuda.empty_cache()
     _check(np.isfinite(spec_cic.Psum).all() and len(spec_cic) == N_GRID // 2,
            "CIC spectrum not finite or wrong length")
     _check(np.array_equal(spec_cic.Nsample, nsamp_host.astype(np.float64)),
@@ -3493,25 +3624,42 @@ def main():
         del cap, sids, svals
         torch.cuda.empty_cache()
 
-    # the main path's run, counts zeroed (also the warm-up)
-    for mod in (sorted_scatter, nn_sweep, nn_window, nn_index_sweep):
+    # the main path's run, counts zeroed (also the warm-up); each beta's
+    # K5 call held to the one-hot version on its input
+    for mod in (sorted_scatter, nn_sweep, nn_window, nn_index_sweep,
+                shell_sums):
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _Capture(power_mod, "_cascade_bin", keep=True,
+    fold_bin = []
+    k5_fold = _k5_hold(torch, shell_sums, "fold", fold_bin)
+    with _Capture(power_mod, "_cascade_bin", keep=True, check=k5_fold,
                   record=False) as fold_bins:
         spec_fold = vt.fused_fold_full_spectrum(particles, N_GRID, FOLD_M)
     torch.cuda.synchronize()
     f_launches = sorted_scatter.LAUNCHES
+    k5_paths["fold"] = shell_sums.LAUNCHES
+    _check(k5_paths["fold"] == FOLD_M**3, f"the 8-beta sweep launched K5 "
+           f"{k5_paths['fold']} times, not once a beta")
     # each beta's (Psum, Nsample): [scatter] (b)'s references
     fold_betas = [(tuple(int(b) for b in beta), psum.cpu().numpy(),
                    nsamp.cpu().numpy()) for beta, (psum, nsamp) in
                   zip(vt.init_beta_space(FOLD_M), fold_bins.results)]
     del fold_bins
     print(f"[fold] fused_fold_full_spectrum(particles, {N_GRID}, {FOLD_M}) "
-          f"warm-up {time.perf_counter() - t0:.2f} s; launches: K1 "
-          f"{f_launches}, K2 {nn_sweep.LAUNCHES}, K3 "
-          f"{nn_index_sweep.LAUNCHES}, K4 {nn_window.LAUNCHES}", flush=True)
+          f"warm-up with the K5 checks {time.perf_counter() - t0:.2f} s; "
+          f"launches: K1 {f_launches}, K2 {nn_sweep.LAUNCHES}, K3 "
+          f"{nn_index_sweep.LAUNCHES}, K4 {nn_window.LAUNCHES}, K5 "
+          f"{k5_paths['fold']} (each Nsample bitwise and Psum within "
+          f"{k5_fold.worst:.3e} of the one-hot version on its input)",
+          flush=True)
+    _check(_same_spectra(spec_fold, vt.fused_fold_full_spectrum(
+        particles, N_GRID, FOLD_M)), "two folded spectra differ (k, Psum "
+        "or Nsample)")
+    # K5 on the full 512^3 grid of the first beta (511 shells)
+    k5_rows.append(_k5_row(torch, shell_sums, f"fold {N_GRID}^3 full",
+                           *fold_bin[0], smi))
+    del fold_bin
     _check(f_launches == FOLD_M**3, f"the 8-beta sweep launched K1 "
            f"{f_launches} times, not once a beta")
     # kmin = 2 pi / L to the Nyquist mode pi / cell at spacing kmin: the
@@ -3598,51 +3746,52 @@ def main():
     del unfolded, k_u, psum_u, nsamp_u  # spec_fold: for [cli]
     torch.cuda.empty_cache()
 
+    def k5_counted(path, phase, *args):
+        """Run a phase; its K5 launches go to ``k5_paths[path]``."""
+        shell_sums.LAUNCHES = 0
+        out = phase(torch, vt, particles, *args)
+        k5_paths[path] = shell_sums.LAUNCHES
+        torch.cuda.empty_cache()
+        return out
+
+    kernel_mods = (sorted_scatter, nn_sweep, nn_window, nn_index_sweep)
     # ---- 11. SPH (512^3, 125 offsets) and 12. I/O ------------------
-    sph_rec, field_small = _sph_phase(
-        torch, vt, particles, N_GRID, nsamp_host, smi, psum_err,
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    sph_rec, field_small = k5_counted("sph", _sph_phase, N_GRID, nsamp_host,
+                                      smi, psum_err, kernel_mods)
     _io_phase(torch, vt, field_small)
     del field_small
     torch.cuda.empty_cache()
 
     # ---- 13. the block-streamed folded sweep ------------------------
-    stream = _streamed_phase(
-        torch, vt, particles, smi, spec_x,
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    stream = k5_counted("streamed", _streamed_phase, smi, spec_x,
+                        kernel_mods)
     stream_l, stream_err = stream["launches"], stream["err"]
     stream_calls = {k: stream[k] for k in ("sorted_scatter", "nn_sweep",
                                            "window_sweep")}
-    torch.cuda.empty_cache()
 
     # ---- 14. the CLI -----------------------------------------------
-    cli_l, cli_pk = _cli_phase(
-        torch, vt, particles, smi,
+    cli_l, cli_pk = k5_counted(
+        "cli", _cli_phase, smi,
         {"nn": spec_nn, "exact": spec_x, "cic": spec_cic, "fold": spec_fold},
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
-    torch.cuda.empty_cache()
+        kernel_mods)
 
     # ---- 15. the block-parallel sweep over a mesh ------------------
-    mesh_l = _mesh_phase(
-        torch, vt, particles, smi, stream, cli_pk.pop("direct sweep"),
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
+    mesh_l = k5_counted("mesh", _mesh_phase, smi, stream,
+                        cli_pk.pop("direct sweep"), kernel_mods)
     del stream
     torch.cuda.empty_cache()
 
     # ---- 16. the mesh scatter pipelines over a 2 x 2 mesh -----------
-    scatter_l, scatter_calls = _scatter_phase(
-        torch, vt, particles, smi,
+    scatter_l, scatter_calls = k5_counted(
+        "scatter", _scatter_phase, smi,
         {"ngp": spec_ngp, "cic": spec_cic, "host ngp": psum_ngp,
          "host cic": psum_cic, "fold": spec_fold, "fold betas": fold_betas,
          "host fold cic": fold_host["cic"], "cli": cli_pk},
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
-    torch.cuda.empty_cache()
+        kernel_mods)
 
     # ---- 17. the interlaced and compensated mesh branch --------------
-    interlace_l, interlace_calls = _interlace_phase(
-        torch, vt, particles, smi,
-        (sorted_scatter, nn_sweep, nn_window, nn_index_sweep))
-    torch.cuda.empty_cache()
+    interlace_l, interlace_calls = k5_counted("interlace", _interlace_phase,
+                                              smi, kernel_mods)
 
     def cli_launches(kernel):
         return {f"cli_{key}": n[kernel] for key, n in cli_l.items()}
@@ -3706,12 +3855,25 @@ def main():
                                     **cli_launches("window_sweep"),
                                     "mesh_exact": mc["window_sweep"]}
     k4_entry["streamed"] = stream_calls["window_sweep"]
+    k5 = k5_rows[-1]   # the fold's grid; the rfft grid's under "calls"
+    k5_entry = entry(
+        "shell_bin", "none: the one-hot products the JAX package leaves to "
+        "XLA, vpower_tpu/spectrum/power.py:_cascade_bin",
+        sum(k5_paths.values()),
+        max(k5_nn.worst, k5_cic.worst, k5_fold.worst),
+        {"ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound": (k5["bound_ms"], k5["bound_by"])},
+        library=k5["library_ms"])
+    k5_entry["err_is"] = "widest relative Psum gap to the one-hot version"
+    k5_entry["launches_by_path"] = k5_paths
+    k5_entry["calls"] = k5_rows
     kernels = [
         k1_entry,
         k2_entry,
         entry("nn_index_sweep", "vpower_tpu/deposit/nn_pallas.py:494",
               i_launches["nn_index_sweep"], k3["err"], k3),
         k4_entry,
+        k5_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,6 +20,10 @@ from vpower_tpu_torch.deposit import (nn_index_sweep, nn_sweep, nn_window,
                                       sorted_scatter)
 from vpower_tpu_torch.run import pipeline as tpipe
 from vpower_tpu_torch.core.particles import Particles
+from vpower_tpu_torch.spectrum import power as tpower
+from vpower_tpu_torch.spectrum import shell_sums
+
+import shell_cases as sc
 
 torch.set_num_threads(1)
 
@@ -868,3 +872,96 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path, monkeypatch, argv):
         pk[dev] = np.loadtxt(out / "Pk.txt")
     np.testing.assert_array_equal(pk["cuda"][:, 3], pk["cpu"][:, 3])
     np.testing.assert_allclose(pk["cuda"][:, 2], pk["cpu"][:, 2], rtol=1e-6)
+
+
+# ---- K5, the shell sums (csrc/shell_bin.cu) --------------------------
+# K5 sums Psum in another order than the plain version's one-hot products
+# (per-warp float32 histograms, then float64 across CTAs), so Psum is held
+# to a float64 sum of the same grid: each float32 partial adds at most a
+# few thousand positive terms, whose rounding stays well under 5e-6 of
+# the shell.  The counts of integer weights are exact in both: bitwise.
+K5_PSUM_RTOL = 5e-6
+
+
+K5_CASES = {
+    "rfft_64": lambda: sc.rfft(64),
+    "rfft_odd_45": lambda: sc.rfft(45),  # rows of 45 * 23: 4-byte loads
+    "fold_64": lambda: sc.fold(64),
+    # two x-planes (n0 = 2) of a 64^3 lattice from plane 9, 40 y-rows
+    # from row 3
+    "block_n0_2": lambda: sc.block((2, 40, 64), 64, (9, 3, 0), 7),
+    # ids from -7 to n_bins + 5: every id outside [0, n_bins) drops
+    "dropped_ids": lambda: sc.random_ids((8, 16, 64), -7, 50, 44, 11),
+    "one_bin": lambda: sc.random_ids((5, 12, 40), -1, 3, 1, 12),
+    # more shells than the private histograms hold: three windows
+    "windows_f32": lambda: sc.random_ids((6, 32, 64), -2, 2600, 2500, 13),
+    "windows_f64": lambda: sc.random_ids((6, 32, 64), 0, 1300, 1200, 14,
+                                         torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_shell_sums_kernel_matches_plain(cuda, case):
+    """K5 against the plain version on the same grid: Nsample bitwise,
+    Psum within K5_PSUM_RTOL of the float64 sum, two calls bitwise equal,
+    one launch a call."""
+    power, bins, n_bins, w = K5_CASES[case]()
+    ref_p, ref_n = shell_sums.shell_sums_plain(power, bins, n_bins, w)
+    ex_p, ex_n = sc.exact(power, bins, n_bins, w)
+    args = (power.to(cuda), bins.to(cuda), n_bins,
+            None if w is None else w.to(cuda))
+    before = shell_sums.LAUNCHES
+    got = shell_sums.shell_sums(*args)
+    again = shell_sums.shell_sums(*args)
+    torch.cuda.synchronize()
+    assert shell_sums.LAUNCHES == before + 2
+    for g in got:
+        assert g.shape == (n_bins,) and g.dtype == power.dtype
+        assert g.device == power.to(cuda).device
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[1].cpu(), ref_n)
+    np.testing.assert_array_equal(got[1].cpu().double().numpy(), ex_n)
+    np.testing.assert_allclose(got[0].cpu().double().numpy(), ex_p,
+                               rtol=K5_PSUM_RTOL)
+    np.testing.assert_allclose(got[0].cpu().double().numpy(),
+                               ref_p.double().numpy(), rtol=2 * K5_PSUM_RTOL)
+
+
+def test_cascade_bin_on_card_launches_k5(cuda):
+    """shell_bin_rfft and shell_bin on the card: one K5 launch each, the
+    counts equal the CPU run's (the plain version)."""
+    rng = np.random.default_rng(15)
+    half = torch.from_numpy(rng.exponential(size=(32, 32, 17))
+                            .astype(np.float32))
+    full = torch.from_numpy(rng.exponential(size=(32,) * 3)
+                            .astype(np.float32))
+    for fn, grid in ((tpower.shell_bin_rfft, half), (tpower.shell_bin, full)):
+        ref = fn(grid, 1.0)
+        before = shell_sums.LAUNCHES
+        got = fn(grid.to(cuda), 1.0)
+        torch.cuda.synchronize()
+        assert shell_sums.LAUNCHES == before + 1
+        assert torch.equal(got[2].cpu(), ref[2])
+        np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].numpy(),
+                                   rtol=2 * K5_PSUM_RTOL)
+
+
+@pytest.mark.parametrize("what", ["power_dtype", "bins_dtype", "weights_2d",
+                                  "bins_on_cpu", "weights_on_cpu"])
+def test_shell_sums_kernel_raises_on_bad_inputs(cuda, what):
+    power, bins, n_bins, w = sc.rfft(16)
+    power, bins, w = power.to(cuda), bins.to(cuda), w.to(cuda)
+    if what == "power_dtype":
+        power = power.half()
+    elif what == "bins_dtype":
+        bins = bins.long()
+    elif what == "weights_2d":
+        w = w.expand(power.shape[1:])
+    elif what == "bins_on_cpu":
+        bins = bins.cpu()
+    elif what == "weights_on_cpu":
+        w = w.cpu()
+    before = shell_sums.LAUNCHES
+    with pytest.raises(ValueError):
+        shell_sums.shell_sums(power, bins, n_bins, w)
+    assert shell_sums.LAUNCHES == before

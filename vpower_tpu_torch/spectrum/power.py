@@ -2,11 +2,15 @@
 
 PyTorch counterpart of :mod:`vpower_tpu.spectrum.power`.  The FFTs are
 ``torch.fft`` (cuFFT on the card; the JAX package likewise leaves the
-FFT to XLA outside any kernel).  Binning is plain tensor ops with the
-JAX package's two-level cascade: per-x-slice partial sums, then one
-cross-slice sum.  The per-slice sums are one-hot matrix products, never
-``index_add_``/``bincount``: on CUDA those use float atomics, whose
-order changes from run to run.
+FFT to XLA outside any kernel).  Binning keeps the JAX package's
+two-level cascade, per-x-slice partial sums, then one cross-slice sum,
+in :func:`_cascade_bin`: on the card the hand-written kernel K5
+(:mod:`.shell_sums`, ``csrc/shell_bin.cu``), which adds each shell's
+power into per-warp histograms in shared memory and sums across in
+float64, with no float atomics (``index_add_``/``bincount`` on CUDA add
+with them, in an order that changes from run to run); on the CPU the
+plain version, the JAX package's one-hot matrix products
+(:func:`.shell_sums.shell_sums_plain`).
 
 Normalization (reference ``interp.py:1377-1381``):
 ``a = (Lbox / 2 pi)^1.5 / N^3``, ``P = 0.5 * sum_c |a F_c(k)|^2`` so that
@@ -21,6 +25,7 @@ import torch
 
 from ..core.arith import div
 from ..utils.profiling import span
+from .shell_sums import shell_sums
 
 __all__ = [
     "power_norm",
@@ -43,11 +48,6 @@ __all__ = [
     "default_k_bins",
     "real_power_binned",
 ]
-
-# Elements of one-hot per binning chunk (4 bytes each): bounds the
-# transient at ~1 GB whatever the grid.
-_ONEHOT_ELEMS = 1 << 28
-
 
 def power_norm(box_size: float, n_grid: int) -> float:
     """FFT normalization ``(L / 2 pi)^1.5 / N^3`` (reference ``interp.py:1381``)."""
@@ -308,31 +308,12 @@ def bin_grid_local(
 
 def _cascade_bin(power: torch.Tensor, bins: torch.Tensor, n_bins: int,
                  weights: Optional[torch.Tensor] = None):
-    """Per-x-slice partial sums, then a cross-slice sum (bounds f32
-    rounding).  Each slice's sums are a product with the slice's one-hot
-    ``(modes, n_bins)`` matrix, chunks of slices at a time.  ``weights``
-    (broadcastable to ``power.shape[1:]``) multiplies both the power and
-    the mode count (the rfft Hermitian multiplicity).  The counts are
-    small integers summed in f32, exact below 2^24 per bin."""
-    n0 = power.shape[0]
-    flat_bins = bins.reshape(n0, -1)
-    flat_power = power.reshape(n0, -1)
-    if weights is None:
-        w_row = torch.ones(flat_power.shape[1], dtype=power.dtype,
-                           device=power.device)
-    else:
-        w_row = torch.broadcast_to(
-            weights.to(power.dtype), power.shape[1:]
-        ).reshape(-1)
-        flat_power = flat_power * w_row
-    bin_ids = torch.arange(n_bins, dtype=bins.dtype, device=bins.device)
-    chunk = max(1, _ONEHOT_ELEMS // (flat_power.shape[1] * max(n_bins, 1)))
-    psums, nsamps = [], []
-    for s in range(0, n0, chunk):
-        onehot = (flat_bins[s:s + chunk, :, None] == bin_ids).to(power.dtype)
-        psums.append(torch.bmm(flat_power[s:s + chunk, None, :], onehot)[:, 0])
-        nsamps.append(torch.matmul(w_row, onehot))
-    return torch.cat(psums).sum(dim=0), torch.cat(nsamps).sum(dim=0)
+    """Per-x-slice partial sums of the power and the mode count in each
+    shell, then a cross-slice sum (:func:`.shell_sums.shell_sums`: K5 on
+    the card, the one-hot products on the CPU).  ``weights`` (an (n2,)
+    vector) multiplies both the power and the count (the rfft Hermitian
+    multiplicity)."""
+    return shell_sums(power, bins, n_bins, weights)
 
 
 def hermitian_weights(n_grid: int, dtype=torch.float32,
