@@ -1,7 +1,11 @@
-"""The port's own spans (``utils/profiling.py:span``, ``span_report``) on
-the CPU: the shared no-op with no profiler, the record kept only while a
-profiler records, each entry's spans by name, nested and counted, and
-every output bitwise the same with the profiler on and off."""
+"""The port's own spans (``utils/profiling.py:span``, ``span_report``,
+``counter_report``) on the CPU: the shared no-op with no profiler, the
+record kept only while a profiler records, each entry's spans by name,
+nested and counted, every output bitwise the same with the profiler on
+and off, and the SPH deposit's counters of clamped and degenerate
+particles."""
+import contextlib
+import math
 import time
 
 import numpy as np
@@ -9,12 +13,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vpower_tpu_torch import (fused_fold_full_spectrum, power_spectrum,
-                              synthetic_particles)
+from vpower_tpu_torch import (Particles, fused_fold_full_spectrum,
+                              power_spectrum, synthetic_particles)
+from vpower_tpu_torch.deposit import sorted_scatter
+from vpower_tpu_torch.deposit import sph as tsph
 from vpower_tpu_torch.utils import profiling
 
 ENTRY = {"nn": "vpower.power_spectrum", "cic": "vpower.power_spectrum",
-         "fold": "vpower.fused_fold"}
+         "fold": "vpower.fused_fold", "sph": "vpower.power_spectrum"}
 
 
 def _particles(n):
@@ -24,11 +30,14 @@ def _particles(n):
 
 def _call(case):
     """nn: torch sweeps at 32^3 and 16^3, the coarsest solve at 8^3;
-    cic: 16^3; fold: 8^3 grids folded twice, 8 betas."""
+    cic: 16^3; fold: 8^3 grids folded twice, 8 betas; sph: 16^3, s_max
+    2 (125 offsets)."""
     if case == "nn":
         return power_spectrum(_particles(16), 32, method="nn")
     if case == "cic":
         return power_spectrum(_particles(12), 16)
+    if case == "sph":
+        return power_spectrum(_particles(12), 16, method="sph", s_max=2)
     return fused_fold_full_spectrum(_particles(12), 8, 2)
 
 
@@ -46,11 +55,18 @@ COUNTS = {
     "fold": {"vpower.fused_fold": 1, "vpower.deposit": 9,
              "vpower.deposit.sort": 1, "vpower.fft": 8,
              "vpower.binning": 8, "vpower.binning.lattice": 8},
+    # the normalization pass, then one an offset; 124 one-axis rolls
+    # between the offsets of the snake and 3 back from the last, (2, 2, 2)
+    "sph": {"vpower.power_spectrum": 1, "vpower.deposit": 1,
+            "vpower.deposit.sort": 1, "vpower.sph.weights": 1 + 125,
+            "vpower.deposit.roll": 127, "vpower.fft": 1,
+            "vpower.binning": 1, "vpower.binning.lattice": 1},
 }
 # each span lies inside one of these
 PARENT = {"vpower.deposit": ("vpower.power_spectrum", "vpower.fused_fold"),
           "vpower.deposit.sort": ("vpower.deposit",),
           "vpower.deposit.roll": ("vpower.deposit",),
+          "vpower.sph.weights": ("vpower.deposit",),
           "vpower.nn.seeds": ("vpower.deposit",),
           "vpower.nn.pool": ("vpower.deposit",),
           "vpower.nn.coarsest": ("vpower.deposit",),
@@ -106,8 +122,8 @@ def test_spans_named_nested_and_counted(traced, case):
     assert got == COUNTS[case]
     assert {k: v[0] for k, v in report.items()} == COUNTS[case]
     assert all(v[1] > 0 for v in report.values())
-    if case == "cic":
-        # one span a torch.roll of the CIC deposit
+    if case in ("cic", "sph"):
+        # one span a torch.roll of the deposit
         rolls = sum(e.name == "aten::roll" for e in events)
         assert got["vpower.deposit.roll"] == rolls
     entry = [e for e in spans if e.name == ENTRY[case]]
@@ -132,3 +148,53 @@ def test_outputs_bitwise_with_the_profiler_on_and_off(traced, case):
         b = np.asarray(getattr(off, name))
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes(), name
+
+
+def _sph_inputs(n=16, s_max=2, n_p=600):
+    """Particles with smoothing lengths of 3-6 cells (clamped at s_max +
+    1/2), 0.01-0.05 cells away from every centre (degenerate) and 1-2
+    cells, a third each, and the counts of the first two kinds."""
+    rng = np.random.default_rng(3)
+    cell = 1.0 / n
+    pos = rng.random((n_p, 3))
+    base = np.floor(pos / cell)
+    # the nearest centre is the own cell's or a neighbour's
+    near = np.min([np.linalg.norm(pos - (base + d + 0.5) * cell, axis=1)
+                   for d in np.array(list(np.ndindex(3, 3, 3))) - 1], axis=0)
+    kind = np.arange(n_p) % 3
+    h = np.choose(kind, [rng.uniform(3, 6, n_p), rng.uniform(0.01, 0.05, n_p),
+                         rng.uniform(1, 2, n_p)]) * cell
+    mass = rng.random(n_p) + 0.5
+    density = 3.0 * mass / (4.0 * math.pi * h**3)
+    t = {k: torch.from_numpy(v.astype(np.float32)) for k, v in
+         dict(pos=pos, mass=mass, density=density,
+              vel=rng.standard_normal((n_p, 3))).items()}
+    h32 = Particles(box_size=1.0, **t).smoothing_length()
+    clamped = int(((h32 > (s_max + 0.5) * cell) | (h32 < 1e-6 * cell)).sum())
+    return Particles(box_size=1.0, **t), clamped, int((h < near).sum())
+
+
+def test_sph_counters_count_clamped_and_degenerate():
+    p, clamped, degenerate = _sph_inputs()
+    assert clamped > 150 and degenerate > 150
+    profiling.counter_report(clear=True)
+    tsph.sph_interp_to_field(p, 16, s_max=2)
+    assert profiling.counter_report() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        tsph.sph_interp_to_field(p, 16, s_max=2)
+    assert profiling.counter_report(clear=True) == {
+        "vpower.sph.weights": {"clamped": clamped,
+                               "degenerate": degenerate}}
+    assert profiling.counter_report() == {}
+
+
+def test_sph_grid_bitwise_with_spans_replaced_by_a_plain_no_op(monkeypatch):
+    p, _, _ = _sph_inputs()
+    with_spans = tsph.sph_interp_to_field(p, 16, s_max=2)
+    for mod in (tsph, sorted_scatter):
+        monkeypatch.setattr(mod, "span",
+                            lambda *a, **k: contextlib.nullcontext())
+    plain = tsph.sph_interp_to_field(p, 16, s_max=2)
+    for name in ("velocity", "mass"):
+        a, b = getattr(with_spans, name), getattr(plain, name)
+        assert a.numpy().tobytes() == b.numpy().tobytes(), name

@@ -19,6 +19,12 @@ of ``+ - * /``, ``sqrt``, ``floor`` and ``round`` only, each its own
 correctly rounded tensor operation (no fused multiply-add; the square
 root through :func:`_sqrt`), so a CUDA run equals a CPU run bit for bit
 given the same ``h``.
+
+Spans (``utils/profiling.py:span``): the sort runs in
+``vpower.deposit.sort``; the normalization pass, and each offset's
+weights, in ``vpower.sph.weights``, whose first span counts the clamped
+(``clamped``) and the degenerate (``degenerate``) particles while a
+profiler records.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from ..core.arith import div
 from ..core.field import BoxField
 from ..core.particles import Particles
+from ..utils.profiling import span
 from .sorted_scatter import deposit_offsets_rolled
 
 __all__ = [
@@ -135,19 +142,27 @@ def sph_deposit(
     pos = torch.remainder(pos, box_size)
     # support clamped to the static footprint (reference analog: the
     # uniform padding cap, interp.py:216-243); bounds rounded once
-    h_eff = torch.clamp(h, min=_f32(1e-6 * cell),
-                        max=_f32((s_max + 0.5) * cell))
-    sids, svals, spos, sh = _sorted_rows(pos, values, h_eff, n_grid, cell)
-    sq = _axis_sq(spos, cell, box_size, s_max, periodic)
-    wsum = _weight_sum(sq, sh, s_max, kernel)
-    # particles whose kernel misses every sampled centre (h much smaller
-    # than a cell) deposit NGP-style into their own cell
-    degenerate = wsum <= 0.0
-    wsum = torch.where(degenerate, 1.0, wsum)
+    h_lo, h_hi = _f32(1e-6 * cell), _f32((s_max + 0.5) * cell)
+    h_eff = torch.clamp(h, min=h_lo, max=h_hi)
+    with span("vpower.deposit.sort"):
+        sids, svals, spos, sh = _sorted_rows(pos, values, h_eff, n_grid,
+                                             cell)
+    with span("vpower.sph.weights") as rec:
+        sq = _axis_sq(spos, cell, box_size, s_max, periodic)
+        wsum = _weight_sum(sq, sh, s_max, kernel)
+        # particles whose kernel misses every sampled centre (h much
+        # smaller than a cell) deposit NGP-style into their own cell
+        degenerate = wsum <= 0.0
+        wsum = torch.where(degenerate, 1.0, wsum)
+        if rec is not None:
+            rec.count(clamped=((h < h_lo) | (h > h_hi)).sum(),
+                      degenerate=degenerate.sum())
 
     def norm_weight(d):
-        w = _offset_weight(sq, sh, d, kernel) / wsum
-        return torch.where(degenerate, 1.0 if d == (0, 0, 0) else 0.0, w)
+        with span("vpower.sph.weights"):
+            w = _offset_weight(sq, sh, d, kernel) / wsum
+            return torch.where(degenerate, 1.0 if d == (0, 0, 0) else 0.0,
+                               w)
 
     return deposit_offsets_rolled(sids, svals, norm_weight,
                                   range(-s_max, s_max + 1), n_grid)

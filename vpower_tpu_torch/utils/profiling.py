@@ -11,7 +11,8 @@ names and output:
   needed);
 * :class:`Progress` — rank-0-style stage-weighted progress printing
   (the reference's tqdm usage, ``parallel_optimized.py:263, 314, 384``);
-* :func:`span` and :func:`span_report` — the program's own named spans.
+* :func:`span`, :func:`span_report` and :func:`counter_report` — the
+  program's own named spans and their counters.
 
 Spans.  Each layer and stage of the port runs inside ``span(name)``,
 named ``vpower.<layer>[.<stage>]``: the entries
@@ -19,7 +20,9 @@ named ``vpower.<layer>[.<stage>]``: the entries
 with ``vpower.deposit.sort`` and ``vpower.deposit.roll``, the NN
 descent's ``vpower.nn.seeds``, ``vpower.nn.pool``,
 ``vpower.nn.coarsest`` and ``vpower.nn.sweep`` (one a level, the level
-size in ``args``), ``vpower.fft``, ``vpower.binning`` with
+size in ``args``), the SPH deposit's ``vpower.sph.weights`` (its
+normalization pass, then one an offset), ``vpower.fft``,
+``vpower.binning`` with
 ``vpower.binning.lattice``, ``vpower.streamed.block`` (the block index
 in ``args``) and ``vpower.mesh.bucketing``.  With no profiler
 recording, ``span`` returns one shared no-op context (no clock read, no
@@ -36,6 +39,12 @@ in-memory record::
 The host times include the profiler's own cost per operation, so they
 compare two versions traced alike, not a traced call with an untraced
 one.
+
+Counters.  ``with span(name) as s`` gives the span itself while a
+profiler records and None otherwise, so a stage works out what it counts
+only while one records: ``if s is not None: s.count(key=tensor)``.  The
+counts stay on the device (no host sync inside the traced calls) and
+are summed by name and key; :func:`counter_report` reads them.
 """
 from __future__ import annotations
 
@@ -49,12 +58,15 @@ import torch
 from torch.autograd import _profiler_enabled
 
 __all__ = ["StageTimer", "trace", "Progress", "sync", "log", "span",
-           "span_report"]
+           "span_report", "counter_report"]
 
 _NOOP = contextlib.nullcontext()
 # name -> [count, host seconds] of the spans closed while a profiler
 # recorded
 _RECORD: Dict[str, List] = {}
+# name -> {key: count} of the counters given while a profiler recorded;
+# each count a 0-d tensor on the device that counted it
+_COUNTERS: Dict[str, Dict[str, torch.Tensor]] = {}
 _RECORD_LOCK = threading.Lock()
 
 
@@ -82,6 +94,13 @@ class _Span:
             rec[1] += dt
         return False
 
+    def count(self, **counts: torch.Tensor) -> None:
+        """Add each 0-d count to the span's counter of that key."""
+        with _RECORD_LOCK:
+            rec = _COUNTERS.setdefault(self.name, {})
+            for key, n in counts.items():
+                rec[key] = rec[key] + n if key in rec else n
+
 
 def span(name: str, args=None):
     """The context of one named span (module note): the shared no-op
@@ -90,6 +109,17 @@ def span(name: str, args=None):
     if not _profiler_enabled():
         return _NOOP
     return _Span(name, None if args is None else str(args))
+
+
+def counter_report(clear: bool = False) -> Dict[str, Dict[str, int]]:
+    """``name -> {key: count}`` of the counters given while a profiler
+    recorded, since the start or the last ``clear`` (one host sync)."""
+    with _RECORD_LOCK:
+        out = {k: {key: int(n) for key, n in v.items()}
+               for k, v in _COUNTERS.items()}
+        if clear:
+            _COUNTERS.clear()
+    return out
 
 
 def span_report(clear: bool = False) -> Dict[str, Tuple[int, float]]:
