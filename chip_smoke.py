@@ -48,8 +48,9 @@ is non-zero):
    bincount, and its bound; NN misassignment on 2^18 random cells against
    a scipy kd-tree, every miss within a cell diagonal; Parseval.
    CIC: ``power_spectrum(particles, 512)`` with the default method; its
-   eight K1 calls (one a corner, each onto the rolled carry) bitwise
-   equal to the plain version run on the host with the same carry;
+   eight K1 calls (one a corner, each in place on the carry at the
+   corner's shifted cells, all on whole z-rows) bitwise equal to the
+   plain version run on the host with the same carry and shift;
    launch counts; mass conserved to 1e-6; Nsample exact; Psum within
    1e-5 of a float64 host chain (``np.bincount`` per corner and channel,
    pocketfft, histogram); three timed runs.
@@ -91,8 +92,8 @@ is non-zero):
    (h ~0.4-5 cells, ~1.1% clamped at 2.5 cells), bulk velocity removed
    and shifted to the origin as ``load_snapshot`` does; 512^3, s_max 2
    (125 offsets).  ``sph_deposit``: its first two K1 calls (the second
-   onto the carry) bitwise equal to the plain version run on the host,
-   timed beside its bound, one ``torch.roll`` timed on each axis.  A
+   in place on the carry, shifted) bitwise equal to the plain version
+   run on the host, timed beside its bound and an unshifted call.  A
    float64 chain on the card (the JAX package's unsorted formulation,
    ``index_add_``, complex128 FFT, host histogram): Nsample exact,
    momentum Psum within 1e-5, momentum grid within 1e-4 of its max,
@@ -366,11 +367,14 @@ class _Capture:
     """Record the arguments (and with ``keep``, the results) of every
     call of ``module.name`` while forwarding it, then restore it; with
     ``check``, call ``check(args, kwargs, result)`` after each call;
-    ``record=False`` keeps no arguments (calls whose inputs are grids)."""
+    ``record=False`` keeps no arguments (calls whose inputs are grids);
+    with ``before``, call ``before(args, kwargs)`` ahead of each call (to
+    copy an input the call updates in place)."""
 
-    def __init__(self, module, name, keep=False, check=None, record=True):
+    def __init__(self, module, name, keep=False, check=None, record=True,
+                 before=None):
         self.module, self.name, self.keep = module, name, keep
-        self.check, self.record = check, record
+        self.check, self.record, self.before = check, record, before
         self.calls, self.results = [], []
 
     def __enter__(self):
@@ -379,6 +383,8 @@ class _Capture:
         def wrapper(*args, **kwargs):
             if self.record:
                 self.calls.append((args, kwargs))
+            if self.before is not None:
+                self.before(args, kwargs)
             out = self.orig(*args, **kwargs)
             if self.keep:
                 self.results.append(out)
@@ -997,35 +1003,48 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     values = torch.cat([p.vel * p.mass[:, None], p.mass[:, None]], dim=1)
     del hc
 
-    # (a) the first two K1 calls (the second onto a carry) against the
-    # plain version on the host, on copies of their inputs
+    # (a) the first two K1 calls (the second in place on the carry, at
+    # its offset's shifted cells) against the plain version on the host,
+    # on copies of their inputs taken before the call
     rec = {"checked": 0, "err": 0.0}
+
+    def k1_before(args, kwargs):
+        carry = kwargs.get("carry")
+        if rec["checked"] < 2:
+            rec["carry"] = None if carry is None else carry.cpu()
 
     def k1_check(args, kwargs, out):
         if rec["checked"] == 2:
             return
         sids, svals, n_cells = args
-        carry = kwargs.get("carry")
+        shift = kwargs.get("shift")
         ref = sorted_scatter.deposit_sorted_plain(
-            sids.cpu(), svals.cpu(), n_cells,
-            None if carry is None else carry.cpu())
+            sids.cpu(), svals.cpu(), n_cells, rec.pop("carry"), shift=shift)
         got = out.cpu()
         rec["err"] = max(rec["err"], float((got - ref).abs().max()))
         _check(torch.equal(got, ref), f"SPH K1 call {rec['checked']} "
                f"differs from its plain version")
-        if carry is not None:
-            rec["call"] = (sids, svals, n_cells, carry)
+        if kwargs.get("carry") is not None:
+            rec["call"] = (sids, svals, n_cells, out.clone(), shift)
         rec["checked"] += 1
 
+    shifted_before = dict(sorted_scatter.SHIFTED_LAUNCHES)
     with _Capture(sorted_scatter, "deposit_sorted", check=k1_check,
-                  record=False):
+                  record=False, before=k1_before):
         grid = sph.sph_deposit(p.pos, values, h, n_grid, box,
                                s_max=SPH_S_MAX)
     torch.cuda.synchronize()
-    sids, svals, n_cells, carry = rec.pop("call")
+    n_rows, n_cells_path = (sorted_scatter.SHIFTED_LAUNCHES[k]
+                            - shifted_before[k] for k in ("rows", "cells"))
+    _check(n_rows == 125 and n_cells_path == 0,
+           f"SPH's shifted K1 calls: {n_rows} wrote whole z-rows and "
+           f"{n_cells_path} cell by cell, not 125 and 0")
+    sids, svals, n_cells, carry, shift = rec.pop("call")
     _check(rec["checked"] == 2 and tuple(svals.shape) == (len(p), 4),
            "SPH K1 inputs")
     ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+        sids, svals, n_cells, carry=carry, shift=shift), 5)
+    unshifted_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
         sids, svals, n_cells, carry=carry), 5)
     plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
         sids, svals, n_cells, carry), 5)
@@ -1033,23 +1052,20 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     lib_ms = _time_ms(torch, lambda: carry.index_add(1, ids64, vals_t), 5)
     bound = _bound(_nbytes(sids, svals, carry) + 4 * carry.numel(),
                    svals.numel())
-    acc = carry.reshape((4,) + (n_grid,) * 3)
-    roll_ms = [_time_ms(torch, lambda: torch.roll(acc, 1, dims=ax), 5)
-               for ax in (1, 2, 3)]
-    k1_rec = {"call": f"SPH offset with carry, {svals.shape[0]} rows x 4 "
-                      f"-> {n_grid}^3",
+    k1_rec = {"call": f"SPH offset with carry, shifted in place, "
+                      f"{svals.shape[0]} rows x 4 -> {n_grid}^3",
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
               "bound_by": bound[1], "library_ms": lib_ms}
     print(f"[sph] sph_deposit {time.perf_counter() - t0:.1f} s with the host "
           f"checks: its first two K1 calls ({tuple(svals.shape)} rows -> "
-          f"(4, {n_cells}), the second onto the carry) bitwise equal to the "
-          f"plain version on the host; one offset with carry: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, carry.index_add "
-          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}); "
-          f"torch.roll by 1 of the (4, {n_grid}^3) grid along x, y, z: "
-          + ", ".join(f"{t:.3f}" for t in roll_ms) + f" ms on {smi}",
-          flush=True)
-    del sids, svals, carry, acc, ids64, vals_t
+          f"(4, {n_cells}), the second in place on the carry, shifted by "
+          f"{shift}) bitwise equal to the plain version on the host; all "
+          f"{n_rows} shifted calls on whole z-rows; one "
+          f"offset with carry: kernel {ms:.3f} ms shifted in place "
+          f"({unshifted_ms:.3f} ms unshifted into a new grid), plain "
+          f"{plain_ms:.3f} ms, carry.index_add {lib_ms:.3f} ms, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}) on {smi}", flush=True)
+    del sids, svals, carry, ids64, vals_t
 
     # (c) the float64 chain: grids, then spectra
     t0 = time.perf_counter()
@@ -1122,7 +1138,7 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
           flush=True)
     targets = [(sph, "_sorted_rows"), (sph, "_axis_sq"),
                (sph, "_weight_sum"), (sph, "deposit_offsets_rolled"),
-               (sorted_scatter, "deposit_sorted"), (torch, "roll"),
+               (sorted_scatter, "deposit_sorted"),
                (power_mod, "vector_power_rfft"),
                (power_mod, "shell_bin_rfft")]
     torch.cuda.synchronize()
@@ -1134,22 +1150,19 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     sec = {}
     for name, s in st.times:
         sec[name] = sec.get(name, 0.0) + s
-    n_roll = sum(name == "roll" for name, _ in st.times)
     stages = {"sort": sec["_sorted_rows"],
               "norm pass (axis terms + 125 weights)": sec["_axis_sq"]
               + sec["_weight_sum"],
               "weights and svals * w": sec["deposit_offsets_rolled"]
-              - sec["deposit_sorted"] - sec["roll"],
+              - sec["deposit_sorted"],
               f"K1 ({launches} launches)": sec["deposit_sorted"],
-              f"torch.roll ({n_roll})": sec["roll"],
               "FFT": sec["vector_power_rfft"],
               "binning": sec["shell_bin_rfft"]}
     print(f"[timing] SPH stages (synchronized, {total:.4f} s in all): "
           + ", ".join(f"{n} {s:.4f} s ({s / total:.1%})"
                       for n, s in stages.items())
           + f"; rest {total - sum(stages.values()):.4f} s; K1 "
-          f"{ms:.3f} ms a launch, roll {np.mean(roll_ms):.3f} ms (CUDA "
-          f"events)", flush=True)
+          f"{ms:.3f} ms a launch (CUDA events)", flush=True)
     torch.cuda.empty_cache()
 
     # (e) no clamp: the multi-resolution levels
@@ -3128,34 +3141,46 @@ def main():
     parseval("NGP", field_ngp.velocity)
     del v_nn, field_ngp
 
-    # CIC, the default method: its eight K1 calls held to the plain
-    # version on the host (a sequential index_add_ in row order) with the
-    # same carry
+    # CIC, the default method: its eight K1 calls (each in place on the
+    # carry, at its corner's shifted cells) held to the plain version on
+    # the host (a sequential index_add_ in row order) with the same
+    # carry, copied before the call
+    cic_carry = {}
+
+    def k1_before(args, kwargs):
+        carry = kwargs.get("carry")
+        cic_carry["host"] = None if carry is None else carry.cpu()
+
     def k1_check(args, kwargs, out):
         sids, svals, n_cells = args
-        carry = kwargs.get("carry")
         ref = sorted_scatter.deposit_sorted_plain(
-            sids.cpu(), svals.cpu(), n_cells,
-            None if carry is None else carry.cpu())
+            sids.cpu(), svals.cpu(), n_cells, cic_carry.pop("host"),
+            shift=kwargs.get("shift"))
         _check(torch.equal(out.cpu(), ref), "a K1 call of the CIC deposit "
                "differs from its plain version")
 
     t0 = time.perf_counter()
-    with _Capture(sorted_scatter, "deposit_sorted",
-                  check=k1_check) as cic_k1:
+    rows_before = sorted_scatter.SHIFTED_LAUNCHES["rows"]
+    with _Capture(sorted_scatter, "deposit_sorted", check=k1_check,
+                  before=k1_before) as cic_k1:
         field_cic = vt.deposit(particles, N_GRID)
     torch.cuda.synchronize()
     n_carry = sum(kw.get("carry") is not None for _, kw in cic_k1.calls)
     _check(len(cic_k1.calls) == 8 and n_carry == 7,
            f"CIC made {len(cic_k1.calls)} K1 calls ({n_carry} with carry), "
            f"not 8 (7)")
+    n_rows = sorted_scatter.SHIFTED_LAUNCHES["rows"] - rows_before
+    _check(n_rows == 8, f"{n_rows} of CIC's 8 shifted K1 calls wrote whole "
+           f"z-rows")
     m_grid = float(field_cic.mass.double().sum())
     m_true = float(particles.mass.double().sum())
     mass_rel = abs(m_grid - m_true) / m_true
     (sids, svals, n_cells), kw = cic_k1.calls[-1]
-    carry = kw["carry"]
+    carry = kw["carry"].clone()
     ids64, vals_t = sids.long(), svals.T
     cic_k1_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
+        sids, svals, n_cells, carry=carry, shift=kw["shift"]), 5)
+    cic_unshifted_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted(
         sids, svals, n_cells, carry=carry), 5)
     cic_plain_ms = _time_ms(torch, lambda: sorted_scatter.deposit_sorted_plain(
         sids, svals, n_cells, carry), 5)
@@ -3163,10 +3188,12 @@ def main():
     cic_bound = _bound(_nbytes(sids, svals, carry) + 4 * carry.numel(),
                        svals.numel())
     print(f"[CIC] deposit(particles, {N_GRID}) (default method): 8 K1 calls "
-          f"of {tuple(svals.shape)} rows, each bitwise equal to the plain "
-          f"version on the host with the same carry; mass on the grid rel "
-          f"err {mass_rel:.3e} (gate {CIC_MASS_RTOL}); one corner with carry: "
-          f"kernel {cic_k1_ms:.3f} ms, plain {cic_plain_ms:.3f} ms, "
+          f"of {tuple(svals.shape)} rows, shifted on whole z-rows, each "
+          f"bitwise equal to the plain version on the host with the same "
+          f"carry; mass on the grid rel err {mass_rel:.3e} (gate "
+          f"{CIC_MASS_RTOL}); one corner with carry: kernel {cic_k1_ms:.3f} "
+          f"ms shifted in place ({cic_unshifted_ms:.3f} ms unshifted into a "
+          f"new grid), plain {cic_plain_ms:.3f} ms, "
           f"carry.index_add {cic_lib_ms:.3f} ms, bound {cic_bound[0]:.3f} ms "
           f"({cic_bound[1]}); {time.perf_counter() - t0:.1f} s", flush=True)
     _check(mass_rel <= CIC_MASS_RTOL, f"CIC mass rel err {mass_rel:.3e}")

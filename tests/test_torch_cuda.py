@@ -513,9 +513,9 @@ def test_ngp_spectrum_on_card_matches_cpu(cuda):
 
 
 def test_cic_deposit_on_card_matches_cpu(cuda):
-    """deposit_cic: one sort, eight K1 launches, each accumulating onto
-    the rolled carry; the card run equals the CPU run (K1's plain version)
-    bit for bit."""
+    """deposit_cic: one sort, eight K1 launches, each adding in place
+    onto the carry at its corner's shifted cells; the card run equals the
+    CPU run (K1's plain version) bit for bit."""
     from vpower_tpu_torch.deposit.scatter import deposit_cic
 
     rng = np.random.default_rng(13)
@@ -528,6 +528,102 @@ def test_cic_deposit_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert sorted_scatter.LAUNCHES == before + 8
     assert torch.equal(got.cpu(), ref)
+
+
+# the shifted write loop each shape takes: the tile (2,048 cells at 3-4
+# channels, 4,096 at 1, 128 at 64 a group) holds whole z-rows or not;
+# "unaligned" puts carry and out 4 bytes off 16, so whole rows go scalar
+_SHIFT_SHAPES = {"rows": (32, 4, 0), "rows_scalar": (2, 3, 0),
+                 "rows_two_groups": (16, 70, 0), "unaligned": (32, 4, 1),
+                 "cells": (24, 4, 0), "cells_one_chan": (10, 1, 0)}
+
+
+@pytest.mark.parametrize("shape", sorted(_SHIFT_SHAPES))
+def test_sorted_scatter_shifted_in_place_matches_plain(cuda, shape):
+    """K1 with a periodic shift, in place on the carry, for all 125
+    shifts in {-2..2}^3 (and a few without a carry): bitwise equal to
+    the plain version on the CPU, written into the carry's own storage,
+    and counted under the write loop the shape picks."""
+    n, n_chan, off = _SHIFT_SHAPES[shape]
+    n_cells = n**3
+    rng = np.random.default_rng(500 + n + n_chan)
+    n_rows = 4 * n_cells + 300
+    ids = rng.integers(0, n_cells, n_rows)
+    ids[:200] = n_cells  # sentinels: dropped
+    ids[200:260] = n_cells // 3  # one long run
+    s = torch.from_numpy(np.sort(ids).astype(np.int32))
+    v = torch.from_numpy(rng.standard_normal((n_rows, n_chan))
+                         .astype(np.float32))
+    carry0 = torch.from_numpy(rng.standard_normal((n_chan, n_cells))
+                              .astype(np.float32))
+    s_c, v_c = s.to(cuda), v.to(cuda)
+    # off 1: carry and out start 4 bytes into a 16-byte aligned buffer
+    buf = torch.empty(n_chan * n_cells + 1, device=cuda)
+    carry = buf[off: off + n_chan * n_cells].view(n_chan, n_cells)
+    assert (carry.data_ptr() % 16 == 0) == (off == 0)
+    path = "cells" if shape.startswith("cells") else "rows"
+    before = dict(sorted_scatter.SHIFTED_LAUNCHES)
+    shifts = sorted_scatter.snake_offsets(range(-2, 3))
+    for d in shifts:
+        ref = sorted_scatter.deposit_sorted_plain(
+            s, v, n_cells, carry0.clone(), shift=d)
+        carry.copy_(carry0)
+        got = sorted_scatter.deposit_sorted(s_c, v_c, n_cells, carry=carry,
+                                            shift=d)
+        assert got.data_ptr() == carry.data_ptr()
+        assert torch.equal(got.cpu(), ref), d
+    for d in shifts[::31]:
+        ref = sorted_scatter.deposit_sorted_plain(s, v, n_cells, shift=d)
+        got = sorted_scatter.deposit_sorted(s_c, v_c, n_cells, shift=d)
+        assert torch.equal(got.cpu(), ref), d
+    after = sorted_scatter.SHIFTED_LAUNCHES
+    n_calls = len(shifts) + len(shifts[::31])
+    assert after[path] == before[path] + n_calls
+    assert sum(after.values()) == sum(before.values()) + n_calls
+
+
+def test_cic_deposit_512_bitwise_to_the_rolled_frame(cuda):
+    """deposit_cic at 512^3 on the card (eight shifted, in-place K1
+    launches, each on whole z-rows) against the formulation it replaced
+    on the card: unshifted K1 launches onto a carry that torch.roll
+    turns by one step between the corners and back at the end."""
+    from vpower_tpu_torch.deposit import scatter as tscatter
+
+    n = 512
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    pos = torch.rand((2_000_000, 3), generator=gen, device=cuda)
+    vals = torch.randn((2_000_000, 4), generator=gen, device=cuda)
+
+    def rolled(sids, svals, weight_fn, axis_vals, n_grid):
+        acc, prev = None, None
+        for d in sorted_scatter.snake_offsets(axis_vals):
+            if prev is not None:
+                for ax, step in enumerate(p - c for p, c in zip(prev, d)):
+                    if step:
+                        acc = torch.roll(acc, step, dims=1 + ax)
+            w = weight_fn(d)
+            acc = sorted_scatter.deposit_sorted(
+                sids, (svals * w[:, None]).contiguous(), n_grid**3,
+                carry=None if acc is None else acc.reshape(4, -1),
+            ).reshape(4, n_grid, n_grid, n_grid)
+            prev = d
+        for ax, step in enumerate(prev):
+            if step:
+                acc = torch.roll(acc, step, dims=1 + ax)
+        return acc
+
+    before = dict(sorted_scatter.SHIFTED_LAUNCHES)
+    got = tscatter.deposit_cic(pos, vals, n, 1.0)
+    torch.cuda.synchronize()
+    assert sorted_scatter.SHIFTED_LAUNCHES["rows"] == before["rows"] + 8
+    assert sorted_scatter.SHIFTED_LAUNCHES["cells"] == before["cells"]
+    orig = tscatter.deposit_offsets_rolled
+    tscatter.deposit_offsets_rolled = rolled
+    try:
+        ref = tscatter.deposit_cic(pos, vals, n, 1.0)
+    finally:
+        tscatter.deposit_offsets_rolled = orig
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("method,beta", [("ngp", (1, 0, 1)),
@@ -586,8 +682,8 @@ def test_wrapper_raises_on_non_contiguous(cuda):
 @pytest.mark.parametrize("n", [32, 64])
 def test_offsets_rolled_sph_footprint_matches_plain(cuda, n):
     """K1 as SPH calls it: 125 launches over the offsets (-2..2)^3, each
-    onto the rolled carry; the card result equals the CPU run (the plain
-    version) bit for bit."""
+    in place on the carry at its offset's shifted cells; the card result
+    equals the CPU run (the plain version) bit for bit."""
     rng = np.random.default_rng(40 + n)
     n_p = 20 * n**2
     sids = torch.from_numpy(np.sort(rng.integers(0, n**3, n_p))
@@ -624,7 +720,7 @@ def _sph_inputs(n_p, n_grid, seed):
                                              (False, "sphere")])
 def test_sph_deposit_on_card_matches_cpu(cuda, periodic, kernel):
     """sph_deposit at 32^3, s_max = 2, given h: the card run (sort,
-    weights, 125 K1 launches, rolls) equals the CPU run bit for bit."""
+    weights, 125 shifted K1 launches) equals the CPU run bit for bit."""
     pos, vals, h = _sph_inputs(40_000, 32, 41)
     from vpower_tpu_torch.deposit import sph
 

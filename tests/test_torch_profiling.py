@@ -15,7 +15,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from vpower_tpu_torch import (Particles, fused_fold_full_spectrum,
                               power_spectrum, synthetic_particles)
-from vpower_tpu_torch.deposit import sorted_scatter
 from vpower_tpu_torch.deposit import sph as tsph
 from vpower_tpu_torch.utils import profiling
 
@@ -49,23 +48,20 @@ COUNTS = {
            "vpower.nn.sweep": 2, "vpower.fft": 1, "vpower.binning": 1,
            "vpower.binning.lattice": 1},
     "cic": {"vpower.power_spectrum": 1, "vpower.deposit": 1,
-            "vpower.deposit.sort": 1, "vpower.deposit.roll": 8,
-            "vpower.fft": 1, "vpower.binning": 1,
+            "vpower.deposit.sort": 1, "vpower.fft": 1, "vpower.binning": 1,
             "vpower.binning.lattice": 1},
     "fold": {"vpower.fused_fold": 1, "vpower.deposit": 9,
              "vpower.deposit.sort": 1, "vpower.fft": 8,
              "vpower.binning": 8, "vpower.binning.lattice": 8},
-    # the normalization pass, then one an offset; 124 one-axis rolls
-    # between the offsets of the snake and 3 back from the last, (2, 2, 2)
+    # the normalization pass, then one an offset
     "sph": {"vpower.power_spectrum": 1, "vpower.deposit": 1,
             "vpower.deposit.sort": 1, "vpower.sph.weights": 1 + 125,
-            "vpower.deposit.roll": 127, "vpower.fft": 1,
+            "vpower.fft": 1,
             "vpower.binning": 1, "vpower.binning.lattice": 1},
 }
 # each span lies inside one of these
 PARENT = {"vpower.deposit": ("vpower.power_spectrum", "vpower.fused_fold"),
           "vpower.deposit.sort": ("vpower.deposit",),
-          "vpower.deposit.roll": ("vpower.deposit",),
           "vpower.sph.weights": ("vpower.deposit",),
           "vpower.nn.seeds": ("vpower.deposit",),
           "vpower.nn.pool": ("vpower.deposit",),
@@ -123,9 +119,12 @@ def test_spans_named_nested_and_counted(traced, case):
     assert {k: v[0] for k, v in report.items()} == COUNTS[case]
     assert all(v[1] > 0 for v in report.values())
     if case in ("cic", "sph"):
-        # one span a torch.roll of the deposit
-        rolls = sum(e.name == "aten::roll" for e in events)
-        assert got["vpower.deposit.roll"] == rolls
+        # the offsets are shifted inside K1: no torch.roll in the deposit
+        deposit = [e for e in spans if e.name == "vpower.deposit"]
+        assert not any(e.name == "aten::roll"
+                       and d.time_range.start <= e.time_range.start
+                       and e.time_range.end <= d.time_range.end
+                       for e in events for d in deposit)
     entry = [e for e in spans if e.name == ENTRY[case]]
     assert len(entry) == 1
     for e in spans:
@@ -191,9 +190,8 @@ def test_sph_counters_count_clamped_and_degenerate():
 def test_sph_grid_bitwise_with_spans_replaced_by_a_plain_no_op(monkeypatch):
     p, _, _ = _sph_inputs()
     with_spans = tsph.sph_interp_to_field(p, 16, s_max=2)
-    for mod in (tsph, sorted_scatter):
-        monkeypatch.setattr(mod, "span",
-                            lambda *a, **k: contextlib.nullcontext())
+    # sorted_scatter opens no span: the offsets are shifted inside K1
+    monkeypatch.setattr(tsph, "span", lambda *a, **k: contextlib.nullcontext())
     plain = tsph.sph_interp_to_field(p, 16, s_max=2)
     for name in ("velocity", "mass"):
         a, b = getattr(with_spans, name), getattr(plain, name)

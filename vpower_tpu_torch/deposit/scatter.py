@@ -68,7 +68,8 @@ def deposit_cic(pos: torch.Tensor, values: torch.Tensor, n_grid: int,
     (n, n, n) or CHANNELS-FIRST (C, n, n, n).  Particles are sorted once
     (stable) by their wrapped base cell; corner ``d`` deposits at the
     base cell with weight ``(fx if dx else 1 - fx) * (fy ...) * (fz
-    ...)``, rolled into place by :func:`deposit_offsets_rolled`."""
+    ...)``, added in place at the cells shifted by ``d`` by
+    :func:`deposit_offsets_rolled`."""
     squeeze = values.ndim == 1
     vals2 = (values[:, None] if squeeze else values).to(torch.float32)
     base, frac = _cic_base_frac(pos, n_grid, box_size)

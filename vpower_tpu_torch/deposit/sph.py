@@ -13,8 +13,9 @@ cells (:func:`sph_deposit`) or handled on coarser grids
 One route, the JAX package's sorted, rolled formulation
 (``_sph_deposit_mxu``): one stable sort by the clipped base cell, the
 per-particle weight sum over the offsets, the degenerate own-cell rule,
-then one K1 deposit an offset at the base cell, rolled into place by
-:func:`~.sorted_scatter.deposit_offsets_rolled`.  The weights are made
+then one K1 deposit an offset, each adding its sums in place at the
+base cells shifted by the offset
+(:func:`~.sorted_scatter.deposit_offsets_rolled`).  The weights are made
 of ``+ - * /``, ``sqrt``, ``floor`` and ``round`` only, each its own
 correctly rounded tensor operation (no fused multiply-add; the square
 root through :func:`_sqrt`), so a CUDA run equals a CPU run bit for bit
@@ -137,7 +138,7 @@ def sph_deposit(
     a CHANNELS-FIRST (C, n, n, n) float32 grid.  Per-particle weights sum
     to 1 over the sampled footprint, so column sums are conserved.
     ``periodic=False`` drops the minimum image from the distances; the
-    rolls still wrap, as in the JAX package."""
+    offsets' shifts still wrap, as the JAX package's rolls do."""
     cell = box_size / n_grid
     pos = torch.remainder(pos, box_size)
     # support clamped to the static footprint (reference analog: the

@@ -17,7 +17,7 @@ names and output:
 Spans.  Each layer and stage of the port runs inside ``span(name)``,
 named ``vpower.<layer>[.<stage>]``: the entries
 (``vpower.power_spectrum``, ``vpower.fused_fold``), ``vpower.deposit``
-with ``vpower.deposit.sort`` and ``vpower.deposit.roll``, the NN
+with ``vpower.deposit.sort``, the NN
 descent's ``vpower.nn.seeds``, ``vpower.nn.pool``,
 ``vpower.nn.coarsest`` and ``vpower.nn.sweep`` (one a level, the level
 size in ``args``), the SPH deposit's ``vpower.sph.weights`` (its
