@@ -331,6 +331,50 @@ def test_ram_cache_f16_matches_jax():
                                  cache_bytes_limit=1.0)
 
 
+@pytest.mark.parametrize("disk, limit, dtype", [
+    (False, 1e9, np.float32), (False, 4000.0, np.float16),
+    (False, 1.0, None), (True, 1e9, np.float32), (True, 1.0, np.float16)])
+def test_block_cache_object(tmp_path, disk, limit, dtype):
+    """The block cache alone: ``_BlockCache.open`` keeps float32 within
+    the budget, else float16 (in RAM where half fits, on disk always)
+    with a warning, else none with a warning; ``has``, ``get``, ``put``
+    and ``finish`` round-trip a block in RAM and on disk; a disk cache
+    re-opened with its manifest holds the block, and with another
+    manifest raises."""
+    d = str(tmp_path / "c") if disk else None
+    run = {"n_grid": 4, "m": 2, "method": "cic"}
+
+    def open_cache(manifest):
+        if dtype == np.float32:
+            return ts._BlockCache.open(8, 3, 4, limit, d, manifest)
+        with pytest.warns(UserWarning,
+                          match="float16" if dtype else "caching disabled"):
+            return ts._BlockCache.open(8, 3, 4, limit, d, manifest)
+
+    c = open_cache(run)
+    if dtype is None:
+        assert c is None
+        return
+    assert c.dtype == dtype and isinstance(c, ts._DiskCache) == disk
+    vals = torch.linspace(-1.0, 1.0, 3 * 64).reshape(3, 64)
+    want = vals.numpy().astype(dtype)
+    assert not c.has(5)
+    c.put(5, vals)
+    assert c.has(5) and not c.has(4)
+    np.testing.assert_array_equal(c.get(5), want)
+    assert c.get(5).dtype == dtype
+    c.finish()
+    if not disk:
+        return
+    assert sorted(os.listdir(d)) == ["block_000005.npy", "manifest.json"]
+    again = open_cache(run)
+    assert again.has(5) and not again.has(4)
+    np.testing.assert_array_equal(again.get(5), want)
+    again.finish()
+    with pytest.raises(ValueError, match="manifest"):
+        open_cache(dict(run, m=3))
+
+
 def test_disk_cache_roundtrip_and_manifest(tmp_path, monkeypatch):
     """``cache_dir`` writes one file a block; a second run reads every
     block (no deposition) and gives the same spectra; another workload

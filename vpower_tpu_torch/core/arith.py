@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 __all__ = ["div"]
@@ -27,3 +28,9 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     tie), so the divisor goes in as a 0-d tensor on ``x``'s device.
     """
     return x / _divisor(float(s), x.dtype, x.device)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX weak-types a Python float: a
+    tensor times this Python float multiplies by exactly that value."""
+    return float(np.float32(x))

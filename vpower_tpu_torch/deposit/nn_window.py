@@ -48,6 +48,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.arith import _f32
+
 __all__ = ["nn_window_gather", "nn_exact_assign", "window_pass",
            "window_pass_plain", "LAUNCHES"]
 
@@ -61,12 +63,6 @@ _MAX_PAY = 5   # rows are [x, y, z, payload <= 5]
 # elements of the plain version's (tiles, 8, 8, zc, rows) distance block
 _PLAIN_BUDGET = {"cpu": 1 << 22, "cuda": 1 << 27}
 _PLAIN_ROWS = 128  # candidate rows per step of the plain version
-
-
-def _f32(x: float) -> float:
-    """``x`` rounded to float32 (as JAX weak-types ``jnp.float32(x)``);
-    a tensor times this Python float multiplies by exactly that value."""
-    return float(np.float32(x))
 
 
 def _zc(n_grid: int) -> int:

@@ -11,7 +11,8 @@ written in place into the carry when one is given.
 
 Rows whose id lies outside ``[0, n_cells)`` are dropped, on both routes:
 callers mark padding rows and rows outside a block with the sentinel
-id ``n_cells``, which sorts last.
+id ``n_cells``, which sorts last.  :func:`sort_rows` makes K1's inputs
+from unsorted ids and rows: every deposit of the port sorts through it.
 
 On a CUDA tensor, :func:`deposit_sorted` launches the hand-written
 kernel ``csrc/sorted_scatter.cu`` (tiles of cells in shared memory,
@@ -35,8 +36,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 __all__ = ["deposit_sorted", "deposit_sorted_cube", "deposit_sorted_plain",
-           "deposit_offsets_rolled", "snake_offsets", "LAUNCHES",
-           "SHIFTED_LAUNCHES"]
+           "deposit_offsets_rolled", "snake_offsets", "sort_rows",
+           "LAUNCHES", "SHIFTED_LAUNCHES"]
 
 LAUNCHES = 0
 # which write loop each shifted launch took: whole z-rows, or cell by cell
@@ -53,6 +54,18 @@ def _cube_shift(n_cells: int, shift: Sequence[int]):
     if len(shift) != 3:
         raise ValueError(f"shift must be (dx, dy, dz), got {shift!r}")
     return n, tuple(int(d) % n for d in shift)
+
+
+def sort_rows(ids: torch.Tensor, *rows: torch.Tensor):
+    """One stable sort of ``ids`` (N,) and each of ``rows`` (N, ...)
+    gathered in its order: ``(sids, order, *rows_sorted)``, with
+    ``sids`` contiguous int32 and every gathered row contiguous, as
+    :func:`deposit_sorted` takes them.  Equal ids keep their input
+    order, which fixes each cell's order of additions.  The caller casts
+    value rows to float32."""
+    sids, order = torch.sort(ids.to(torch.int32), stable=True)
+    return (sids.contiguous(), order) + tuple(r[order].contiguous()
+                                              for r in rows)
 
 
 def deposit_sorted_plain(sids: torch.Tensor, svals: torch.Tensor,

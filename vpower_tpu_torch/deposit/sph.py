@@ -29,14 +29,13 @@ profiler records.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..core.arith import div
+from ..core.arith import _f32, div
 from ..core.field import BoxField
 from ..core.particles import Particles
 from ..utils.profiling import span
-from .sorted_scatter import deposit_offsets_rolled
+from .sorted_scatter import deposit_offsets_rolled, sort_rows
 
 __all__ = [
     "sph_deposit",
@@ -62,19 +61,15 @@ def kernel_weight(q: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"Unknown kernel {kind!r}")
 
 
-def _f32(x: float) -> float:
-    return float(np.float32(x))
-
-
 def _sorted_rows(pos, values, h_eff, n_grid: int, cell: float):
     """One stable sort by the base cell clipped to ``[0, n - 1]``:
     ``(sids, svals, spos, sh)``, the rows contiguous and float32."""
     base = torch.clamp(torch.floor(div(pos, cell)).to(torch.int32), 0,
                        n_grid - 1)
     ids = (base[:, 0] * n_grid + base[:, 1]) * n_grid + base[:, 2]
-    sids, order = torch.sort(ids, stable=True)
-    return (sids.contiguous(), values[order].to(torch.float32).contiguous(),
-            pos[order], h_eff[order])
+    sids, _, svals, spos, sh = sort_rows(ids, values.to(torch.float32), pos,
+                                         h_eff)
+    return sids, svals, spos, sh
 
 
 def _axis_sq(spos, cell: float, box_size: float, s_max: int,

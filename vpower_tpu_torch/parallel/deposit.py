@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from ..core.arith import div
-from ..deposit.scatter import _cic_base_frac
-from ..deposit.sorted_scatter import deposit_sorted
+from ..deposit.scatter import _CORNERS, _cic_base_frac, corner_weight
+from ..deposit.sorted_scatter import deposit_sorted, sort_rows
 from ..spectrum.fold import _full_index
 from .mesh import _local_entries, _ppermute_next
 
@@ -45,8 +45,6 @@ __all__ = [
     "fold_local_targets",
     "shard_particles_host",
 ]
-
-_CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
 
 
 def local_block_info(n_grid: int, mesh,
@@ -71,10 +69,8 @@ def _scatter_local(ids: torch.Tensor, values: torch.Tensor, n_cells: int,
     CHANNELS-FIRST ``(C,) + shape`` for (N, C) values, ``shape`` for
     (N,)."""
     vals2 = values[:, None] if values.ndim == 1 else values
-    sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    flat = deposit_sorted(sids.contiguous(),
-                          vals2[order].to(torch.float32).contiguous(),
-                          n_cells)
+    sids, _, svals = sort_rows(ids, vals2.to(torch.float32))
+    flat = deposit_sorted(sids, svals, n_cells)
     if values.ndim == 2:
         return flat.reshape((values.shape[1],) + tuple(shape))
     return flat[0].reshape(shape)
@@ -103,14 +99,6 @@ def deposit_ngp_local(pos: List[torch.Tensor], values: List[torch.Tensor],
             zip(pos, values, local_block_info(n_grid, mesh, axis_names))]
 
 
-def _corner_weight(frac, d):
-    """``wx * wy * wz`` of corner ``d``: ``frac`` on a +1 axis, ``1 -
-    frac`` on a +0 one."""
-    wx, wy, wz = ((frac[:, a] if d[a] else 1.0 - frac[:, a])
-                  for a in range(3))
-    return wx * wy * wz
-
-
 def _cic_scatter(values, ids_all, w_all, n_cells, shape):
     squeeze = values.ndim == 1
     vals2 = values[:, None] if squeeze else values
@@ -132,7 +120,7 @@ def _cic_block(pos, values, n_grid, box_size, info):
         inside = (lx >= 0) & (lx < nlx) & (ly >= 0) & (ly < nly)
         ids_all.append(torch.where(inside, (lx * nly + ly) * nlz + lz,
                                    n_cells))
-        w_all.append(_corner_weight(frac, d))
+        w_all.append(corner_weight(frac, d))
     return _cic_scatter(values, ids_all, w_all, n_cells, (nlx, nly, nlz))
 
 
@@ -185,7 +173,7 @@ def _cic_sharded_block(pos, values, n_grid, box_size, info):
         inside = (lx >= 0) & (lx <= nlx) & (ly >= 0) & (ly <= nly)
         ids_all.append(torch.where(inside, (lx * (nly + 1) + ly) * nlz + lz,
                                    n_ext))
-        w_all.append(_corner_weight(frac, d))
+        w_all.append(corner_weight(frac, d))
     return _cic_scatter(values, ids_all, w_all, n_ext,
                         (nlx + 1, nly + 1, nlz))
 
@@ -234,7 +222,7 @@ def _fold_targets_block(pos, n_grid, n_total, box_size, method, info):
         inside = (lx >= 0) & (lx <= nlx) & (ly >= 0) & (ly <= nly)
         ids_all.append(torch.where(inside, (lx * (nly + 1) + ly) * nlz + lz,
                                    n_ext))
-        w_all.append(_corner_weight(frac, d))
+        w_all.append(corner_weight(frac, d))
         qidx_all.append(torch.stack(
             [torch.remainder(base[:, a] + d[a], n_total) for a in range(3)],
             dim=1))

@@ -43,7 +43,7 @@ import torch
 
 from ..core.arith import div
 from ..core.particles import Particles
-from ..deposit.sorted_scatter import deposit_sorted
+from ..deposit.sorted_scatter import deposit_sorted, sort_rows
 from ..fft import distributed as pencil
 from ..run.pipeline import _interlace_angle, _mode_window, _phased_values
 from ..spectrum.power import _power, default_k_bins, power_norm, \
@@ -124,10 +124,9 @@ def _fold_targets(mesh, pos, values, n_grid, fold_m, total_box, method):
                                method, mesh), values):
         base_vals = (v if method == "ngp" else v.repeat(8, 1)) \
             * (w * norm)[:, None]
-        ids_s, order = torch.sort(ids, stable=True)
-        out.append((ids_s.contiguous(),
-                    base_vals[order].to(torch.float32).contiguous(),
-                    qidx[order].contiguous()))
+        ids_s, _, vals_s, qidx_s = sort_rows(
+            ids, base_vals.to(torch.float32), qidx)
+        out.append((ids_s, vals_s, qidx_s))
     return out
 
 

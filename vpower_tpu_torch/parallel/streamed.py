@@ -41,7 +41,7 @@ import torch
 
 from ..core.particles import Particles
 from ..run import streamed as run_streamed
-from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
+from ..spectrum.spectrum import SpectrumList, init_beta_space
 
 __all__ = ["distributed_streamed_sweep"]
 
@@ -175,27 +175,14 @@ def distributed_streamed_sweep(
     n_total = m * n_grid
     n_ch = 1 if quantity == "energy" else 3
     n_cells = n_grid**3
-    kmin = 2.0 * np.pi / box
-    kmax = float(np.pi / (box / n_total))
-    n_bins = int((kmax - kmin) / kmin) + 1
     cell_total = box / n_total
 
     if method == "nn":
-        if margin_cells is None and certify:
-            # the single-card certified default (the suspect count warns
-            # if the margin ever binds where no escalation runs)
-            want = run_streamed._default_margin_cells(
-                n_grid, n_total, particles.pos.shape[0])
-            n_ext, margin_cells = run_streamed._round_ext_capped(
-                n_grid, want, (n_total - n_grid) // 2)
-        else:
-            if margin_cells is None:
-                margin_cells = max(n_grid // 4, 8)
-            n_ext, margin_cells = run_streamed.round_ext(n_grid,
-                                                         margin_cells)
-        rows, starts, counts, pad, _, _ = \
-            run_streamed._block_candidates_device(particles, m, n_grid,
-                                                  margin_cells)
+        # the single-card block source (the suspect count warns if the
+        # margin ever binds where no escalation runs)
+        n_ext, margin_cells, rows, starts, counts, pad = \
+            run_streamed._nn_block_source(particles, m, n_grid,
+                                          margin_cells, certify)
         shards, starts_dev, counts_dev, _ = _shard_candidates(
             rows, starts, counts, pad, ndev, nb_local, local_devs)
         del rows
@@ -236,22 +223,13 @@ def distributed_streamed_sweep(
         # auto: a cache of nb_local blocks of f32 values on each entry
         cache_values = nb_local * n_ch * n_cells * 4 <= 2e9
 
-    qs_all = np.arange(n_blocks)
-    qv_all = np.stack([qs_all // (m * m), (qs_all // m) % m, qs_all % m],
-                      axis=1).astype(np.float64)
-
-    def s_matrix(batch):
-        """(B, m^3) complex phases ``s(q, beta)`` of the batch."""
-        return np.exp(-2j * np.pi * (batch.astype(np.float64) @ qv_all.T)
-                      / m) / m**1.5
-
-    def to_entry(s, g):
-        """Entry g's columns of ``s`` as f32 (re, im) on its device."""
-        cols = s[:, g * nb_local:(g + 1) * nb_local]
-        return (run_streamed._to_device(cols.real.astype(np.float32),
-                                        local_devs[g]),
-                run_streamed._to_device(cols.imag.astype(np.float32),
-                                        local_devs[g]))
+    def phases(batch, g, zero=()):
+        """Entry g's (B, nb_local) phases as f32 (re, im) on its device,
+        its blocks ``zero`` at 0."""
+        return run_streamed._s_phases(
+            batch, range(g * nb_local, (g + 1) * nb_local), m,
+            local_devs[g], [q - g * nb_local for q in zero
+                            if q // nb_local == g])
 
     def suspects(sus):
         """The (m^3,) per-block suspect counts on the host, from the
@@ -261,20 +239,6 @@ def distributed_streamed_sweep(
         for g in local:
             vec[g * nb_local:(g + 1) * nb_local] = sus[g].to(dev0)
         return _combine(mesh, [vec]).cpu().numpy()
-
-    def finish(acc, batch):
-        ks, psums, nsamps = run_streamed._finish_batch(
-            acc[0], acc[1], batch, n_grid, n_total, box, n_bins)
-        out = []
-        for j, beta in enumerate(batch):
-            s = PowerSpectrum.from_binned(
-                ks[j], psums[j], nsamps[j],
-                m=m, beta=tuple(int(b) for b in beta),
-            )
-            out.append(s)
-            if on_spectrum is not None:
-                on_spectrum(s)  # e.g. the CLI's per-beta checkpoint
-        return out
 
     stats = {"suspect_cells": 0, "escalated_blocks": 0,
              "uncertified_cells": 0}
@@ -332,21 +296,21 @@ def distributed_streamed_sweep(
         for b0 in range(0, len(betas_np), beta_batch):
             batch = betas_np[b0:b0 + beta_batch]
             B = len(batch)
-            s = s_matrix(batch)
-            sc = s[:, corr_qs].copy()
-            s[:, corr_qs] = 0.0      # cache column replaced
             parts = []
             for g in local:
-                s_re, s_im = to_entry(s, g)
+                # an escalated block's cache column is replaced
+                s_re, s_im = phases(batch, g, corr_qs)
                 v = cached[g].reshape(nb_local, -1)
                 parts.append(torch.stack([s_re @ v, s_im @ v]))
             acc = _combine(mesh, parts)
             if corr_qs:
-                acc[0].add_(run_streamed._to_device(
-                    sc.real.astype(np.float32), dev0) @ corr)
-                acc[1].add_(run_streamed._to_device(
-                    sc.imag.astype(np.float32), dev0) @ corr)
-            spectra.extend(finish(acc.reshape(2, B, n_ch, n_cells), batch))
+                sc_re, sc_im = run_streamed._s_phases(batch, corr_qs, m,
+                                                      dev0)
+                acc[0].add_(sc_re @ corr)
+                acc[1].add_(sc_im @ corr)
+            acc = acc.reshape(2, B, n_ch, n_cells)
+            spectra += run_streamed._finish_batch(
+                acc[0], acc[1], batch, n_grid, n_total, box, on_spectrum)
             del acc, parts
         if stage_times is not None:
             stage_times["batches_s"] = round(time.time() - t0, 2)
@@ -354,17 +318,12 @@ def distributed_streamed_sweep(
         return SpectrumList(spectra)
 
     # ------- no-cache: compute and accumulate per batch -------------- #
-    per_block = n_ch * n_cells * 4
-    chunk = 1
-    while chunk < 8 and chunk * 2 <= nb_local \
-            and chunk * 2 * per_block <= 1.6e9:
-        chunk *= 2
+    chunk = run_streamed._block_chunk(nb_local, n_ch * n_cells * 4)
     sus_total = None
     for b0 in range(0, len(betas_np), beta_batch):
         batch = betas_np[b0:b0 + beta_batch]
         B = len(batch)
-        s = s_matrix(batch)
-        s_local = {g: to_entry(s, g) for g in local}
+        s_local = {g: phases(batch, g) for g in local}
         accs = {g: torch.zeros((2, B, n_ch, n_cells), dtype=torch.float32,
                                device=local_devs[g]) for g in local}
         sus = {g: torch.zeros((nb_local,), dtype=torch.int32,
@@ -390,7 +349,8 @@ def distributed_streamed_sweep(
             # blocks are recomputed identically per batch — the first
             # batch's count IS the per-sweep total
             sus_total = int(suspects(sus).sum())
-        spectra.extend(finish(acc, batch))
+        spectra += run_streamed._finish_batch(
+            acc[0], acc[1], batch, n_grid, n_total, box, on_spectrum)
         del acc, accs
     stats["suspect_cells"] = sus_total or 0
     if stage_times is not None:

@@ -20,7 +20,7 @@ from ..core.arith import div
 from ..core.field import BoxField, FoldedField
 from ..core.particles import Particles
 from ..deposit.scatter import deposit_cic, deposit_ngp
-from ..deposit.sorted_scatter import deposit_sorted
+from ..deposit.sorted_scatter import deposit_sorted, sort_rows
 from ..spectrum import fold as fold_mod
 from ..spectrum import power as power_mod
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
@@ -260,10 +260,9 @@ def _fold_targets(pos: torch.Tensor, values: torch.Tensor, m: int,
     ids, vals, idx_full = fold_mod.fold_scatter_targets(
         pos, values, m, box_size, n_grid, method=method)
     with span("vpower.deposit.sort"):
-        ids_s, order = torch.sort(ids, stable=True)
-        return (ids_s.contiguous(),
-                vals[order].to(torch.float32).contiguous(),
-                idx_full[order].contiguous())
+        ids_s, _, vals_s, idx_s = sort_rows(ids, vals.to(torch.float32),
+                                            idx_full)
+        return ids_s, vals_s, idx_s
 
 
 def _phased_values(beta: Tuple[int, int, int], vals_s: torch.Tensor,

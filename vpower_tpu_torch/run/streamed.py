@@ -40,8 +40,11 @@ exact blocks whose extended grid is a multiple of 64.  Fast blocks run
 in chunks with one certificate read per chunk, one chunk behind the
 dispatch; exact blocks (whose window sweep reads its tier decisions on
 the host) run one by one, one block behind.  Block values can be cached
-in host RAM or on disk (``cache_dir``), so beta batches after the first
-skip the deposition.
+in host RAM or on disk (``cache_dir``, :class:`_BlockCache`), so beta
+batches after the first skip the deposition.  The mesh sweep
+(:mod:`vpower_tpu_torch.parallel.streamed`) takes its NN candidate runs
+from the same block source (:func:`_nn_block_source`) and finishes its
+batches through :func:`_finish_batch`.
 """
 from __future__ import annotations
 
@@ -60,21 +63,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.arith import div
+from ..core.arith import _f32, div
 from ..core.particles import Particles
 from ..deposit.nn import nn_assign, nn_gather_grid
-from ..deposit.sorted_scatter import deposit_sorted
+from ..deposit.scatter import _CORNERS, _cic_base_frac, corner_weight
+from ..deposit.sorted_scatter import deposit_sorted, sort_rows
 from ..spectrum import power as power_mod
 from ..spectrum.fold import get_phase
 from ..spectrum.spectrum import PowerSpectrum, SpectrumList, init_beta_space
 from ..utils.profiling import span
 
 __all__ = ["streamed_folded_sweep", "streamed_folded_spectrum"]
-
-
-def _f32(x: float) -> float:
-    """``x`` rounded to float32, as JAX weak-types a Python float."""
-    return float(np.float32(x))
 
 
 def _np(t, dtype=np.float32) -> np.ndarray:
@@ -692,21 +691,10 @@ def _scatter_block_values(pos, vel, mass, block_q, n_grid: int,
                 n_total)
             corners.append((idx, w))
     elif method == "cic":
-        u = div(pos, cell) - 0.5
-        base = torch.floor(u).to(torch.int32)
-        frac = u - base.to(u.dtype)
-        corners = []
-        for dx in (0, 1):
-            wx = (1.0 - frac[:, 0]) if dx == 0 else frac[:, 0]
-            for dy in (0, 1):
-                wy = (1.0 - frac[:, 1]) if dy == 0 else frac[:, 1]
-                for dz in (0, 1):
-                    wz = (1.0 - frac[:, 2]) if dz == 0 else frac[:, 2]
-                    idx = torch.stack(
-                        [torch.remainder(base[:, 0] + dx, n_total),
-                         torch.remainder(base[:, 1] + dy, n_total),
-                         torch.remainder(base[:, 2] + dz, n_total)], dim=1)
-                    corners.append((idx, wx * wy * wz))
+        base, frac = _cic_base_frac(pos, n_total, box)
+        corners = [(torch.stack([torch.remainder(base[:, a] + d[a], n_total)
+                                 for a in range(3)], dim=1),
+                    corner_weight(frac, d)) for d in _CORNERS]
     else:
         raise ValueError(f"Unsupported scatter method {method!r}")
 
@@ -723,11 +711,10 @@ def _scatter_block_values(pos, vel, mass, block_q, n_grid: int,
     ids = torch.cat(ids_all) if len(ids_all) > 1 else ids_all[0]
     vals = torch.cat(vals_all) if len(vals_all) > 1 else vals_all[0]
     del ids_all, vals_all
-    ids_s, order = torch.sort(ids.to(torch.int32), stable=True)
-    flat4 = deposit_sorted(ids_s.contiguous(),
-                           vals[order].to(torch.float32).contiguous(),
-                           n_cells)
-    del ids_s, order, vals
+    sids, _, svals = sort_rows(ids, vals.to(torch.float32))
+    del ids, vals
+    flat4 = deposit_sorted(sids, svals, n_cells)
+    del sids, svals
     mv, mg = flat4[:3], flat4[3]
     if quantity == "momentum":
         return mv
@@ -741,8 +728,206 @@ def _scatter_block_values(pos, vel, mass, block_q, n_grid: int,
 
 
 # ---------------------------------------------------------------------- #
+# the block source and the host cache of block values                    #
+# ---------------------------------------------------------------------- #
+def _nn_block_source(particles: Particles, m: int, n_grid: int,
+                     margin_cells: Optional[int], certify: bool):
+    """The NN block source of both streamed sweeps: the margin decision
+    and the candidate runs (:func:`_block_candidates_device`).  Unset,
+    the margin is density-aware under the certificate
+    (:func:`_default_margin_cells`, capped where one periodic image per
+    particle stops being representable) and ``max(n_grid // 4, 8)``
+    without it; either rounds to an extended block size.  Returns
+    ``(n_ext, margin_cells, rows, starts, counts, pad)``."""
+    n_total = m * n_grid
+    if margin_cells is None and certify:
+        want = _default_margin_cells(n_grid, n_total, particles.pos.shape[0])
+        n_ext, margin_cells = _round_ext_capped(n_grid, want,
+                                                (n_total - n_grid) // 2)
+    else:
+        if margin_cells is None:
+            margin_cells = max(n_grid // 4, 8)
+        n_ext, margin_cells = round_ext(n_grid, margin_cells)
+    rows, starts, counts, pad, ext_box, _ = _block_candidates_device(
+        particles, m, n_grid, margin_cells)
+    # the extended frame covers n_ext cells of the SAME cell size
+    if n_ext * (float(particles.box_size) / n_total) < ext_box - 1e-9:
+        raise AssertionError("extended grid smaller than candidate box")
+    return n_ext, margin_cells, rows, starts, counts, pad
+
+
+class _BlockCache:
+    """Host cache of a sweep's block values, one (C, n_grid^3) array a
+    block q in ``dtype``, so that beta batches after the first skip the
+    deposition: in RAM here, on disk in :class:`_DiskCache`.
+    :meth:`open` picks the store and the dtype."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self._held = {}
+
+    @staticmethod
+    def open(n_blocks: int, n_ch: int, n_grid: int, cache_bytes_limit: float,
+             cache_dir: Optional[str] = None, manifest=None):
+        """The cache of a sweep of ``n_blocks`` blocks, or None: float32
+        where they fit ``cache_bytes_limit``, else float16 where half
+        of that fits or the cache goes to ``cache_dir`` (with a
+        warning), else none (with a warning)."""
+        total_bytes_f32 = n_blocks * n_ch * n_grid**3 * 4
+        if total_bytes_f32 <= cache_bytes_limit:
+            dtype = np.float32
+        elif cache_dir is not None or total_bytes_f32 / 2 <= cache_bytes_limit:
+            dtype = np.float16
+            warnings.warn(
+                f"block-value cache ({total_bytes_f32 / 1e9:.1f} GB as "
+                f"float32) exceeds cache_bytes_limit="
+                f"{cache_bytes_limit / 1e9:.1f} GB; caching in float16 — "
+                f"beta batches after the first reuse f16-rounded field "
+                f"values (~3 decimal digits).  Raise cache_bytes_limit, "
+                f"lower beta_batch, or pass cache=False for full "
+                f"precision on every pass.",
+                stacklevel=3,
+            )
+        else:
+            warnings.warn(
+                f"block-value cache would need "
+                f"{total_bytes_f32 / 2e9:.1f} GB even as float16 — over "
+                f"cache_bytes_limit={cache_bytes_limit / 1e9:.1f} GB; "
+                f"caching disabled, every beta batch recomputes block "
+                f"values at full precision (pass cache_dir= to spill "
+                f"the cache to disk instead).",
+                stacklevel=3,
+            )
+            return None
+        if cache_dir is None:
+            return _BlockCache(dtype)
+        return _DiskCache(dtype, cache_dir, manifest)
+
+    def has(self, q: int) -> bool:
+        return q in self._held
+
+    def get(self, q: int) -> np.ndarray:
+        return self._held[q]
+
+    def put(self, q: int, vals) -> None:
+        self._held[q] = _np(vals, self.dtype)
+
+    def finish(self) -> None:
+        """Called once the sweep has read its last block."""
+
+
+class _DiskCache(_BlockCache):
+    """The block cache in ``cache_dir``: one ``.npy`` a block and a JSON
+    manifest of the run (``manifest`` with the dtype), which a re-run
+    must match to reuse the blocks already there.  One background
+    thread writes, each file committed by tmp + rename, fed through a
+    2-deep queue that bounds host RAM to ~2 blocks; its first error
+    (e.g. disk full) is raised on the next put, get or finish."""
+
+    def __init__(self, dtype, cache_dir: str, manifest: dict):
+        super().__init__(dtype)
+        self.dir = cache_dir
+        os.makedirs(cache_dir, exist_ok=True)
+        manifest = dict(manifest, dtype=np.dtype(dtype).name)
+        mpath = os.path.join(cache_dir, "manifest.json")
+        if os.path.exists(mpath):
+            with open(mpath) as fh:
+                on_disk = json.load(fh)
+            if on_disk != manifest:
+                raise ValueError(
+                    f"cache_dir {cache_dir!r} holds blocks for a "
+                    f"different run (manifest mismatch: {on_disk} vs "
+                    f"{manifest}); point cache_dir at a fresh directory."
+                )
+        else:
+            tmp = mpath + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(manifest, fh)
+            os.replace(tmp, mpath)
+        self._held = {
+            int(f[6:12]) for f in os.listdir(cache_dir)
+            if f.startswith("block_") and f.endswith(".npy")
+            and not f.endswith(".tmp.npy")
+        }
+        self._queue: "queue.Queue" = queue.Queue(maxsize=2)
+        self._errors: list = []
+        threading.Thread(target=self._write, daemon=True).start()
+
+    def _path(self, q: int) -> str:
+        return os.path.join(self.dir, f"block_{q:06d}.npy")
+
+    def _write(self):
+        while True:
+            item = self._queue.get()
+            try:
+                if item is None:
+                    return
+                if self._errors:
+                    continue  # drain without writing so puts unblock
+                q, arr = item
+                tmp = self._path(q) + ".tmp.npy"
+                np.save(tmp, arr)
+                os.replace(tmp, self._path(q))
+            except BaseException as e:  # noqa: BLE001
+                self._errors.append(e)
+            finally:
+                self._queue.task_done()
+
+    def _check(self):
+        if self._errors:
+            raise RuntimeError(
+                f"block-cache writer failed ({self.dir!r})"
+            ) from self._errors[0]
+
+    def get(self, q: int) -> np.ndarray:
+        if not os.path.exists(self._path(q)):
+            self._queue.join()  # queued but not yet on disk
+            self._check()
+        return np.load(self._path(q))
+
+    def put(self, q: int, vals) -> None:
+        self._check()
+        self._queue.put((q, _np(vals, self.dtype)))
+        self._held.add(q)
+
+    def finish(self) -> None:
+        """Drain the queue and stop the writer."""
+        self._queue.join()
+        self._queue.put(None)
+        self._check()
+
+
+# ---------------------------------------------------------------------- #
 # accumulate + finish                                                    #
 # ---------------------------------------------------------------------- #
+def _block_q3(q: int, m: int):
+    return (q // (m * m), (q // m) % m, q % m)
+
+
+def _s_phases(batch: np.ndarray, qs, m: int, device, zero=()):
+    """(re, im) f32 on ``device`` of the (B, k) fold phases ``s(q, beta)
+    = exp(-2 pi i beta . q / m) / m^1.5`` of the batch's betas at the
+    blocks ``qs``, the columns ``zero`` set to 0."""
+    qs = np.asarray(qs)
+    qv = np.stack([qs // (m * m), (qs // m) % m, qs % m],
+                  axis=1).astype(np.float64)
+    s = np.exp(-2j * np.pi * (batch.astype(np.float64) @ qv.T) / m) \
+        / m**1.5
+    s[:, list(zero)] = 0.0
+    return (_to_device(s.real.astype(np.float32), device),
+            _to_device(s.imag.astype(np.float32), device))
+
+
+def _block_chunk(n_blocks: int, width: float) -> int:
+    """Blocks a chunk: the largest power of two up to 8 and ``n_blocks``
+    whose values, ``width`` bytes a block, stay within 1.6 GB."""
+    chunk = 1
+    while chunk < 8 and chunk * 2 <= n_blocks \
+            and chunk * 2 * width <= 1.6e9:
+        chunk *= 2
+    return chunk
+
+
 def _accumulate_chunk(acc_re, acc_im, vals, s_re, s_im):
     """``acc += s @ vals`` over a block chunk, in place: ``acc`` (B, C,
     n^3) f32, ``vals`` (Q, C, n^3) f32 or f16, ``s`` (B, Q) f32; one
@@ -755,10 +940,10 @@ def _accumulate_chunk(acc_re, acc_im, vals, s_re, s_im):
 
 
 def _accumulate(acc_re, acc_im, vals, s_re, s_im):
-    """``acc += s (B,) complex * vals (C, n^3)``, in place, carried as
+    """``acc += s (B, 1) complex * vals (C, n^3)``, in place, carried as
     (re, im) real pairs."""
-    acc_re.add_(s_re[:, None, None] * vals[None])
-    acc_im.add_(s_im[:, None, None] * vals[None])
+    acc_re.add_(s_re[:, :, None] * vals[None])
+    acc_im.add_(s_im[:, :, None] * vals[None])
 
 
 def _finish_beta(acc_re, acc_im, beta, n_grid: int, n_total: int,
@@ -788,21 +973,165 @@ def _finish_beta(acc_re, acc_im, beta, n_grid: int, n_total: int,
 
 
 def _finish_batch(acc_re, acc_im, betas, n_grid: int, n_total: int,
-                  box: float, n_bins: int):
-    """:func:`_finish_beta` over a batch: ``(k, Psum, Nsample)`` as
-    host arrays (B, n_bins)."""
+                  box: float, on_spectrum=None) -> List[PowerSpectrum]:
+    """:func:`_finish_beta` over a batch, up to the Nyquist mode of the
+    full-resolution lattice: the sub-spectra, each passed to
+    ``on_spectrum`` once all are binned."""
+    kmin = 2.0 * np.pi / box
+    kmax = float(np.pi / (box / n_total))
+    n_bins = int((kmax - kmin) / kmin) + 1
     out = [_finish_beta(acc_re[j], acc_im[j],
                         tuple(int(b) for b in betas[j]), n_grid, n_total,
                         box, n_bins) for j in range(len(betas))]
-    return tuple(np.stack([o[i].cpu().numpy() for o in out])
-                 for i in range(3))
+    ks, psums, nsamps = (np.stack([o[i].cpu().numpy() for o in out])
+                         for i in range(3))
+    spectra = []
+    for j, beta in enumerate(betas):
+        s = PowerSpectrum.from_binned(
+            ks[j], psums[j], nsamps[j], m=n_total // n_grid,
+            beta=tuple(int(b) for b in beta))
+        spectra.append(s)
+        if on_spectrum is not None:
+            on_spectrum(s)  # e.g. the CLI's per-beta checkpoint
+    return spectra
 
 
 # ---------------------------------------------------------------------- #
 # the sweep                                                              #
 # ---------------------------------------------------------------------- #
-def _block_q3(q: int, m: int):
-    return (q // (m * m), (q // m) % m, q % m)
+def _chunked_pass(acc, batch, m: int, block_values, certify: bool,
+                  escalate, store: Optional[_BlockCache], chunk: int, tick):
+    """The chunked block loop of one beta batch: the blocks not in
+    ``store`` ``chunk`` at a time, one matmul accumulate into ``acc``
+    (re, im) and ONE certificate read a chunk, settled one chunk behind
+    the dispatch; then the cached blocks, read by a prefetching thread
+    (no deposition).  ``tick(j)`` follows the blocks done."""
+    acc_re, acc_im = acc
+    dev = acc_re.device
+    n_ch, n_cells = acc_re.shape[1:]
+    lo = store is not None and store.dtype == np.float16
+    held = [store is not None and store.has(q) for q in range(m**3)]
+    fresh = [q for q in range(m**3) if not held[q]]
+    done_qs = [q for q in range(m**3) if held[q]]
+
+    def phases(group, zero=()):
+        """The chunk's phases, padding slots and ``zero`` at 0."""
+        qs = list(group) + [group[-1]] * (chunk - len(group))
+        return _s_phases(batch, qs, m, dev,
+                         list(range(len(group), chunk)) + list(zero))
+
+    def dispatch(group):
+        """Queue a chunk's block values; start the copies the settle
+        reads (the certificate counts, the cache)."""
+        vals = torch.empty((chunk, n_ch, n_cells), dtype=torch.float32,
+                           device=dev)
+        vals[len(group):] = 0.0  # padding slots: s = 0 there
+        nsus = (torch.zeros((chunk,), dtype=torch.int32, device=dev)
+                if certify else None)
+        for i, q in enumerate(group):
+            out = block_values(q)
+            if certify:
+                vals[i], nsus[i] = out
+            else:
+                vals[i] = out
+            del out
+        nsus_h, ev = _to_host_async(nsus)
+        vals_h = None
+        if store is not None:
+            vals_h, ev = _to_host_async(
+                vals.to(torch.float16) if lo else vals)
+        return group, vals, nsus_h, vals_h, ev
+
+    def settle(group, vals, nsus_h, vals_h, ev):
+        if ev is not None:
+            ev.synchronize()
+        bad = []
+        if nsus_h is not None:
+            nsus_np = nsus_h.numpy()  # ONE read per chunk
+            bad = [(i, q, int(nsus_np[i]))
+                   for i, q in enumerate(group) if int(nsus_np[i])]
+        _accumulate_chunk(acc_re, acc_im, vals,
+                          *phases(group, [i for i, _, _ in bad]))
+        for _, q, n_bad in bad:
+            v_esc = escalate(q, n_bad)
+            _accumulate(acc_re, acc_im, v_esc, *_s_phases(batch, [q], m, dev))
+            if store is not None:
+                store.put(q, v_esc)
+        if store is not None:
+            vals_np = vals_h.numpy()
+            for i, q in enumerate(group):
+                if not store.has(q):  # the escalated ones are in
+                    store.put(q, vals_np[i])
+
+    pending = None
+    n_done = 0
+    for g0 in range(0, len(fresh), chunk):
+        group = fresh[g0: g0 + chunk]
+        entry = dispatch(group)
+        if pending is not None:
+            settle(*pending)
+        pending = entry
+        n_done += len(group)
+        tick(n_done - 1)
+    if pending is not None:
+        settle(*pending)
+    if not done_qs:
+        return
+    groups = [done_qs[g0: g0 + chunk] for g0 in range(0, len(done_qs), chunk)]
+
+    def read_group(group):
+        arr = np.zeros((chunk, n_ch, n_cells), store.dtype)
+        for i, q in enumerate(group):
+            arr[i] = store.get(q)
+        return arr
+
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(read_group, groups[0])
+        for gi, group in enumerate(groups):
+            arr = fut.result()
+            if gi + 1 < len(groups):
+                fut = ex.submit(read_group, groups[gi + 1])
+            s_re, s_im = phases(group)
+            _accumulate_chunk(acc_re, acc_im, _to_device(arr, dev), s_re,
+                              s_im)
+            n_done += len(group)
+            tick(n_done - 1)
+
+
+def _block_pass(accs, devices, batch, m: int, block_values, certify: bool,
+                escalate, store: Optional[_BlockCache], tick):
+    """The per-block loop of one beta batch, for exact NN (whose window
+    sweep reads its tier decisions on the host) and ``devices=``: block
+    q runs on ``devices[q % n_dev]`` and accumulates into ``accs`` of
+    that entry; it is certified (escalating if needed), cached and
+    accumulated one block a device behind the dispatch, so that the
+    certificate read meets finished work."""
+    n_dev = len(devices)
+
+    def settle(q, vals, nsus):
+        n_bad = 0 if nsus is None else int(nsus)
+        if n_bad:
+            vals = escalate(q, n_bad)
+        if store is not None and not store.has(q):
+            store.put(q, vals)
+        k = q % n_dev
+        _accumulate(*accs[k], vals, *_s_phases(batch, [q], m, devices[k]))
+
+    pending = deque()
+    for q in range(m**3):
+        if store is not None and store.has(q):
+            entry = (q, _to_device(np.asarray(store.get(q), np.float32),
+                                   devices[q % n_dev]), None)
+        elif certify:
+            entry = (q, *block_values(q))
+        else:
+            entry = (q, block_values(q), None)
+        pending.append(entry)
+        if len(pending) > n_dev:
+            settle(*pending.popleft())
+        tick(q)
+    while pending:
+        settle(*pending.popleft())
 
 
 def streamed_folded_sweep(
@@ -872,11 +1201,8 @@ def streamed_folded_sweep(
     box = float(particles.box_size)
     n_total = m * n_grid
     n_ch = 1 if quantity == "energy" else 3
+    n_blocks = m**3
     dev = particles.pos.device
-
-    kmin = 2.0 * np.pi / box
-    kmax = float(np.pi / (box / n_total))
-    n_bins = int((kmax - kmin) / kmin) + 1
 
     certify = certify and method == "nn"
     multi = devices is not None and len(devices) >= 1
@@ -891,51 +1217,30 @@ def streamed_folded_sweep(
     n_dev = len(devices)
 
     if method == "nn":
-        margin_max = (n_total - n_grid) // 2  # representability cap
-        if margin_cells is None and certify:
-            want = _default_margin_cells(n_grid, n_total,
-                                         particles.pos.shape[0])
-            n_ext, margin_cells = _round_ext_capped(n_grid, want, margin_max)
-        else:
-            if margin_cells is None:
-                margin_cells = max(n_grid // 4, 8)
-            n_ext, margin_cells = round_ext(n_grid, margin_cells)
         _t0 = time.time()
-        rows_d, starts, counts, pad, ext_box, _ = _block_candidates_device(
-            particles, m, n_grid, margin_cells)
+        n_ext, margin_cells, rows_d, starts, counts, pad = _nn_block_source(
+            particles, m, n_grid, margin_cells, certify)
         _sync(dev)  # so that the stage time is honest
         if stage_times is not None:
             stage_times["candidates_s"] = round(time.time() - _t0, 2)
-        cell_total = box / n_total
-        # the extended frame covers n_ext cells of the SAME cell size
-        ext_box_grid = n_ext * cell_total
-        if ext_box_grid < ext_box - 1e-9:
-            raise AssertionError("extended grid smaller than candidate box")
 
         def block_values(q: int):
             s0 = int(starts[q])
             with span("vpower.streamed.block", q):
                 return _block_values_at(
                     rows_d[s0:s0 + pad].to(devices[q % n_dev]),
-                    int(counts[q]), n_grid, n_ext, margin_cells, cell_total,
-                    quantity, exact, certify)
-
-        def escalate_block(q: int):
-            return _escalate_block(particles, q, m, n_grid, margin_cells,
-                                   margin_max, cell_total, quantity, exact,
-                                   device=devices[q % n_dev])
+                    int(counts[q]), n_grid, n_ext, margin_cells,
+                    box / n_total, quantity, exact, certify)
 
     elif method in ("ngp", "cic", "sph"):
-        pos_d = particles.pos
-        vel_d = particles.vel
-        mass_d = particles.mass
         h_d = particles.smoothing_length() if method == "sph" else None
 
         def block_values(q: int):
             with span("vpower.streamed.block", q):
                 return _scatter_block_values(
-                    pos_d, vel_d, mass_d, _block_q3(q, m), n_grid, n_total,
-                    box, method, quantity, h=h_d).reshape(n_ch, n_grid**3)
+                    particles.pos, particles.vel, particles.mass,
+                    _block_q3(q, m), n_grid, n_total, box, method, quantity,
+                    h=h_d).reshape(n_ch, n_grid**3)
 
     else:
         raise ValueError(
@@ -943,335 +1248,64 @@ def streamed_folded_sweep(
             f"got {method!r}"
         )
 
-    # host-side block-value cache: f32 if it fits the budget, else f16
-    n_blocks = m**3
-    cache_store: dict = {}
-    cache_dtype = None
-    disk_mode = cache_dir is not None
-    if disk_mode:
-        cache = True  # an explicit directory means: cache, on disk
-    if cache:
-        total_bytes_f32 = n_blocks * n_ch * n_grid**3 * 4
-        if total_bytes_f32 <= cache_bytes_limit:
-            cache_dtype = np.float32
-        elif disk_mode or total_bytes_f32 / 2 <= cache_bytes_limit:
-            cache_dtype = np.float16
-            warnings.warn(
-                f"block-value cache ({total_bytes_f32 / 1e9:.1f} GB as "
-                f"float32) exceeds cache_bytes_limit="
-                f"{cache_bytes_limit / 1e9:.1f} GB; caching in float16 — "
-                f"beta batches after the first reuse f16-rounded field "
-                f"values (~3 decimal digits).  Raise cache_bytes_limit, "
-                f"lower beta_batch, or pass cache=False for full "
-                f"precision on every pass.",
-                stacklevel=2,
-            )
-        else:
-            cache = False
-            warnings.warn(
-                f"block-value cache would need "
-                f"{total_bytes_f32 / 2e9:.1f} GB even as float16 — over "
-                f"cache_bytes_limit={cache_bytes_limit / 1e9:.1f} GB; "
-                f"caching disabled, every beta batch recomputes block "
-                f"values at full precision (pass cache_dir= to spill "
-                f"the cache to disk instead).",
-                stacklevel=2,
-            )
+    stats = {"suspect_cells": 0, "escalated_blocks": 0,
+             "uncertified_cells": 0}
 
-    if cache and disk_mode:
-        os.makedirs(cache_dir, exist_ok=True)
-        head = np.ascontiguousarray(_np(particles.pos[:4096]))
-        manifest = {
+    def escalate(q: int, n_bad: int):
+        """Values of block q, whose certificate counted ``n_bad``
+        suspect cells, re-run at doubled margins."""
+        stats["suspect_cells"] += n_bad
+        stats["escalated_blocks"] += 1
+        vals, left = _escalate_block(
+            particles, q, m, n_grid, margin_cells, (n_total - n_grid) // 2,
+            box / n_total, quantity, exact, device=devices[q % n_dev])
+        stats["uncertified_cells"] += left
+        return vals
+
+    store = None
+    if cache or cache_dir is not None:  # a directory means: cache, on disk
+        manifest = None if cache_dir is None else {
             "n_grid": n_grid, "m": m, "n_ch": n_ch,
             "quantity": quantity, "method": method, "exact": bool(exact),
             "certify": bool(certify), "margin_cells": margin_cells,
-            "n_particles": int(particles.pos.shape[0]),
-            "box": box, "dtype": np.dtype(cache_dtype).name,
-            "pos_head_sha1": hashlib.sha1(head.tobytes()).hexdigest(),
+            "n_particles": int(particles.pos.shape[0]), "box": box,
+            "pos_head_sha1": hashlib.sha1(np.ascontiguousarray(
+                _np(particles.pos[:4096])).tobytes()).hexdigest(),
         }
-        mpath = os.path.join(cache_dir, "manifest.json")
-        if os.path.exists(mpath):
-            with open(mpath) as fh:
-                on_disk = json.load(fh)
-            if on_disk != manifest:
-                raise ValueError(
-                    f"cache_dir {cache_dir!r} holds blocks for a "
-                    f"different run (manifest mismatch: {on_disk} vs "
-                    f"{manifest}); point cache_dir at a fresh directory."
-                )
-        else:
-            tmp = mpath + ".tmp"
-            with open(tmp, "w") as fh:
-                json.dump(manifest, fh)
-            os.replace(tmp, mpath)
+        store = _BlockCache.open(n_blocks, n_ch, n_grid, cache_bytes_limit,
+                                 cache_dir, manifest)
 
-        def _cpath(q):
-            return os.path.join(cache_dir, f"block_{q:06d}.npy")
-
-        # one background writer: serialization would otherwise stall the
-        # block loop; the 2-deep queue bounds host RAM to ~2 blocks
-        _wq: "queue.Queue" = queue.Queue(maxsize=2)
-        _written = {
-            int(f[6:12])
-            for f in os.listdir(cache_dir)
-            if f.startswith("block_") and f.endswith(".npy")
-            and not f.endswith(".tmp.npy")
-        }
-        _werr: list = []  # first writer exception (e.g. disk full)
-
-        def _writer():
-            while True:
-                item = _wq.get()
-                try:
-                    if item is None:
-                        return
-                    if _werr:
-                        continue  # drain without writing so puts unblock
-                    q, arr = item
-                    tmp = _cpath(q) + ".tmp.npy"
-                    np.save(tmp, arr)
-                    os.replace(tmp, _cpath(q))
-                except BaseException as e:  # noqa: BLE001
-                    _werr.append(e)
-                finally:
-                    _wq.task_done()
-
-        threading.Thread(target=_writer, daemon=True).start()
-
-        def _check_writer():
-            if _werr:
-                raise RuntimeError(
-                    f"block-cache writer failed ({cache_dir!r})"
-                ) from _werr[0]
-
-        def _cache_has(q):
-            return q in _written
-
-        def _cache_get(q):
-            if not os.path.exists(_cpath(q)):
-                _wq.join()  # queued but not yet on disk
-                _check_writer()
-            return np.load(_cpath(q))
-
-        def _cache_put(q, vals):
-            _check_writer()
-            _wq.put((q, _np(vals, cache_dtype)))
-            _written.add(q)
-
-        def _cache_finish():
-            _wq.join()
-            _wq.put(None)
-            _check_writer()
-    else:
-        def _cache_has(q):
-            return q in cache_store
-
-        def _cache_get(q):
-            return cache_store[q]
-
-        def _cache_put(q, vals):
-            cache_store[q] = _np(vals, cache_dtype)
-
-        def _cache_finish():
-            pass
-
-    stats = {"suspect_cells": 0, "escalated_blocks": 0,
-             "uncertified_cells": 0}
-    # chunked block loop: up to 8 blocks a chunk, one matmul accumulate
-    # and ONE certificate read per chunk; exact NN (whose window sweep
-    # reads its tier decisions on the host) and round-robin placement
-    # keep the per-block loop
+    # chunked block loop: up to 8 blocks a chunk; exact NN and
+    # round-robin placement keep the per-block loop
     use_chunks = not multi and not (method == "nn" and exact)
     if use_chunks:
-        per_block = n_ch * n_grid**3 * 4
-        width = per_block * (1.5 if (cache and cache_dtype == np.float16)
-                             else 1.0)
-        block_chunk = 1
-        while (block_chunk < 8 and block_chunk * 2 <= n_blocks
-               and block_chunk * 2 * width <= 1.6e9):
-            block_chunk *= 2
+        lo = store is not None and store.dtype == np.float16
+        chunk = _block_chunk(n_blocks,
+                             n_ch * n_grid**3 * 4 * (1.5 if lo else 1.0))
     spectra: List[PowerSpectrum] = []
     n_batches = (len(betas_np) + beta_batch - 1) // beta_batch
     for bi in range(n_batches):
         batch = betas_np[bi * beta_batch: (bi + 1) * beta_batch]
-        B = len(batch)
         _tb = time.time()
-        shape = (B, n_ch, n_grid**3)
+        shape = (len(batch), n_ch, n_grid**3)
         # one folded accumulator pair a device entry
         accs = [(torch.zeros(shape, dtype=torch.float32, device=dv),
                  torch.zeros(shape, dtype=torch.float32, device=dv))
                 for dv in devices]
-        acc_re, acc_im = accs[0]
 
-        def _s_block(q, device):
-            """(re, im) of ``s(q, beta)`` over the batch, f32 on
-            ``device``."""
-            qv = np.array(_block_q3(q, m), np.float64)
-            s = np.exp(-2j * np.pi * (batch @ qv) / m) / m**1.5
-            return (_to_device(s.real.astype(np.float32), device),
-                    _to_device(s.imag.astype(np.float32), device))
+        def tick(j: int):
+            if progress is not None:
+                progress(bi, n_batches, j, n_blocks)
 
         if use_chunks:
-            want_lo = bool(cache) and cache_dtype == np.float16
-            fresh = [q for q in range(n_blocks)
-                     if not (cache and _cache_has(q))]
-            done_qs = [q for q in range(n_blocks)
-                       if cache and _cache_has(q)]
-
-            def _pad_group(group):
-                qs = np.full((block_chunk,), group[-1], np.int32)
-                qs[: len(group)] = group
-                return qs
-
-            def _s_matrix(qs, zero_cols=()):
-                qv = np.stack(
-                    [qs // (m * m), (qs // m) % m, qs % m], axis=1
-                ).astype(np.float64)
-                s = np.exp(
-                    -2j * np.pi * (batch.astype(np.float64) @ qv.T) / m
-                ) / m**1.5
-                zero_cols = list(zero_cols)
-                if zero_cols:
-                    s[:, zero_cols] = 0.0
-                return (_to_device(s.real.astype(np.float32), dev),
-                        _to_device(s.imag.astype(np.float32), dev))
-
-            def compute_chunk(group):
-                """Queue a chunk's block values; start the copies the
-                settle reads (the certificate counts, the cache)."""
-                vals = torch.empty((block_chunk, n_ch, n_grid**3),
-                                   dtype=torch.float32, device=dev)
-                vals[len(group):] = 0.0  # padding slots: s = 0 there
-                nsus = (torch.zeros((block_chunk,), dtype=torch.int32,
-                                    device=dev) if certify else None)
-                for i, q in enumerate(group):
-                    out = block_values(q)
-                    if certify:
-                        vals[i] = out[0]
-                        nsus[i] = out[1]
-                    else:
-                        vals[i] = out
-                    del out
-                nsus_h, ev = _to_host_async(nsus)
-                vals_h = None
-                if cache:
-                    vals_h, ev = _to_host_async(
-                        vals.to(torch.float16) if want_lo else vals)
-                return (group, _pad_group(group), vals, nsus_h, vals_h, ev)
-
-            def settle_chunk(entry):
-                group, qs, vals, nsus_h, vals_h, ev = entry
-                if ev is not None:
-                    ev.synchronize()
-                bad = []
-                if nsus_h is not None:
-                    nsus_np = nsus_h.numpy()  # ONE read per chunk
-                    bad = [(i, q, int(nsus_np[i]))
-                           for i, q in enumerate(group) if int(nsus_np[i])]
-                zero = (list(range(len(group), block_chunk))
-                        + [i for i, _, _ in bad])
-                s_re, s_im = _s_matrix(qs, zero)
-                _accumulate_chunk(acc_re, acc_im, vals, s_re, s_im)
-                badset = set()
-                for i, q, nb in bad:
-                    badset.add(q)
-                    stats["suspect_cells"] += nb
-                    stats["escalated_blocks"] += 1
-                    v_esc, left = escalate_block(q)
-                    stats["uncertified_cells"] += left
-                    _accumulate(acc_re, acc_im, v_esc, *_s_block(q, dev))
-                    if cache and not _cache_has(q):
-                        _cache_put(q, v_esc)
-                if cache:
-                    vals_np = vals_h.numpy()
-                    for i, q in enumerate(group):
-                        if q not in badset and not _cache_has(q):
-                            _cache_put(q, vals_np[i])
-
-            pending = None
-            n_done = 0
-            for g0 in range(0, len(fresh), block_chunk):
-                group = fresh[g0: g0 + block_chunk]
-                entry = compute_chunk(group)
-                if pending is not None:
-                    settle_chunk(pending)
-                pending = entry
-                n_done += len(group)
-                if progress is not None:
-                    progress(bi, n_batches, n_done - 1, n_blocks)
-            if pending is not None:
-                settle_chunk(pending)
-            pending = None
-
-            if done_qs:
-                # cached blocks: prefetching host reads feed the chunked
-                # accumulate (no deposition)
-                groups = [done_qs[g0: g0 + block_chunk]
-                          for g0 in range(0, len(done_qs), block_chunk)]
-
-                def read_group(group):
-                    arr = np.zeros((block_chunk, n_ch, n_grid**3),
-                                   cache_dtype)
-                    for i, q in enumerate(group):
-                        arr[i] = _cache_get(q)
-                    return arr
-
-                with concurrent.futures.ThreadPoolExecutor(1) as ex:
-                    fut = ex.submit(read_group, groups[0])
-                    for gi, group in enumerate(groups):
-                        arr = fut.result()
-                        if gi + 1 < len(groups):
-                            fut = ex.submit(read_group, groups[gi + 1])
-                        s_re, s_im = _s_matrix(_pad_group(group),
-                                               range(len(group), block_chunk))
-                        _accumulate_chunk(acc_re, acc_im,
-                                          _to_device(arr, dev), s_re, s_im)
-                        n_done += len(group)
-                        if progress is not None:
-                            progress(bi, n_batches, n_done - 1, n_blocks)
+            _chunked_pass(accs[0], batch, m, block_values, certify,
+                          escalate, store, chunk, tick)
         else:
-            def settle(entry):
-                """Certify (escalating if needed), cache and
-                fold-accumulate one block, one block behind the dispatch
-                so that the certificate read meets finished work."""
-                q, vals, nsus = entry
-                if nsus is not None:
-                    n_bad = int(nsus)
-                    if n_bad:
-                        stats["suspect_cells"] += n_bad
-                        stats["escalated_blocks"] += 1
-                        vals, left = escalate_block(q)
-                        stats["uncertified_cells"] += left
-                if cache and not _cache_has(q):
-                    _cache_put(q, vals)
-                k = q % n_dev
-                _accumulate(accs[k][0], accs[k][1], vals,
-                            *_s_block(q, devices[k]))
-
-            # one dispatched block a device ahead of the settle point
-            # (settling reads the certificate on the host)
-            depth = max(1, n_dev)
-            pending = deque()
-            for q in range(n_blocks):
-                if cache and _cache_has(q):
-                    entry = (q, _to_device(
-                        np.asarray(_cache_get(q), np.float32),
-                        devices[q % n_dev]), None)
-                elif certify:
-                    vals, nsus = block_values(q)
-                    entry = (q, vals, nsus)
-                else:
-                    entry = (q, block_values(q), None)
-                pending.append(entry)
-                if len(pending) > depth:
-                    settle(pending.popleft())
-                if progress is not None:
-                    progress(bi, n_batches, q, n_blocks)
-            while pending:
-                settle(pending.popleft())
-
+            _block_pass(accs, devices, batch, m, block_values, certify,
+                        escalate, store, tick)
         # the combine: the entries' accumulators summed onto devices[0] in
         # entry order
+        acc_re, acc_im = accs[0]
         for k in range(1, n_dev):
             acc_re.add_(accs[k][0].to(devices[0]))
             acc_im.add_(accs[k][1].to(devices[0]))
@@ -1281,23 +1315,16 @@ def streamed_folded_sweep(
             stage_times["blocks_s"] = round(
                 stage_times.get("blocks_s", 0.0) + time.time() - _tb, 2)
             _tb = time.time()
-        ks, psums, nsamps = _finish_batch(acc_re, acc_im, batch, n_grid,
-                                          n_total, box, n_bins)
+        spectra += _finish_batch(acc_re, acc_im, batch, n_grid, n_total, box,
+                                 on_spectrum)
         del acc_re, acc_im
-        for j, beta in enumerate(batch):
-            s = PowerSpectrum.from_binned(
-                ks[j], psums[j], nsamps[j],
-                m=m, beta=tuple(int(b) for b in beta),
-            )
-            spectra.append(s)
-            if on_spectrum is not None:
-                on_spectrum(s)
         if stage_times is not None:
             stage_times["finish_s"] = round(
                 stage_times.get("finish_s", 0.0) + time.time() - _tb, 2)
     if stage_times is not None and certify:
         stage_times.update(stats)
-    _cache_finish()  # disk mode: drain and stop the background writer
+    if store is not None:
+        store.finish()  # disk: drain and stop the background writer
     return SpectrumList(spectra)
 
 

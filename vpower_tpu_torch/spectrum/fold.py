@@ -31,6 +31,7 @@ import torch
 
 from ..core.arith import div
 from ..core.field import BoxField, FoldedField
+from ..deposit.scatter import _CORNERS, _cic_base_frac, corner_weight
 
 __all__ = [
     "get_phase",
@@ -202,24 +203,14 @@ def fold_scatter_targets(
     if method != "cic":
         raise ValueError(f"Unsupported fused-fold method {method!r}")
 
-    u = div(pos, cell) - 0.5
-    base = torch.floor(u).to(torch.int32)
-    frac = (u - base.to(u.dtype)).to(values.dtype)
+    base, frac = _cic_base_frac(pos, n_total, box_size)
+    frac = frac.to(values.dtype)
     ids_all, vals_all, idx_all = [], [], []
-    for dx in (0, 1):
-        wx = (1.0 - frac[:, 0]) if dx == 0 else frac[:, 0]
-        gx = torch.remainder(base[:, 0] + dx, n_total)
-        for dy in (0, 1):
-            wy = (1.0 - frac[:, 1]) if dy == 0 else frac[:, 1]
-            gy = torch.remainder(base[:, 1] + dy, n_total)
-            for dz in (0, 1):
-                wz = (1.0 - frac[:, 2]) if dz == 0 else frac[:, 2]
-                gz = torch.remainder(base[:, 2] + dz, n_total)
-                ids_all.append(flat(torch.remainder(gx, n_grid),
-                                    torch.remainder(gy, n_grid),
-                                    torch.remainder(gz, n_grid)))
-                vals_all.append(values * ((wx * wy * wz) * norm)[:, None])
-                idx_all.append(torch.stack([gx, gy, gz], dim=1))
+    for d in _CORNERS:
+        g = [torch.remainder(base[:, a] + d[a], n_total) for a in range(3)]
+        ids_all.append(flat(*(torch.remainder(ga, n_grid) for ga in g)))
+        vals_all.append(values * (corner_weight(frac, d) * norm)[:, None])
+        idx_all.append(torch.stack(g, dim=1))
     return torch.cat(ids_all), torch.cat(vals_all), torch.cat(idx_all)
 
 
