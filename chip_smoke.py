@@ -91,19 +91,27 @@ is non-zero):
 11. sph: the same particles with log-normal densities ``exp(0.7 z)``
    (h ~0.4-5 cells, ~1.1% clamped at 2.5 cells), bulk velocity removed
    and shifted to the origin as ``load_snapshot`` does; 512^3, s_max 2
-   (125 offsets).  ``sph_deposit``: its first two K1 calls (the second
-   in place on the carry, shifted) bitwise equal to the plain version
-   run on the host, timed beside its bound and an unshifted call.  A
+   (125 offsets).  ``sph_deposit``: K6 launched once for the weight
+   sums and once an offset (1 ``norm``, 125 ``rows``), its grid bitwise
+   equal (hashes printed) to the torch weight route forced on the card;
+   K6's two entries timed beside their bounds; its first two K1 calls
+   (the second in place on the carry, shifted) bitwise equal to the
+   plain version run on the host, timed beside its bound and an
+   unshifted call.  A
    float64 chain on the card (the JAX package's unsorted formulation,
    ``index_add_``, complex128 FFT, host histogram): Nsample exact,
    momentum Psum within 1e-5, momentum grid within 1e-4 of its max,
    grid mass within 1e-6 (the velocity Psum and the cells covered in one
    chain only are printed).  The main path, ``power_spectrum(particles,
-   512, method="sph")``: launch counts; ``check_conservation`` (mass
-   within 1e-6); three timed runs and the stages of a fourth.
-   ``sph_interp_to_field(clamp_support=False)``: its levels, launches,
-   mass within 1e-6.  ``sph_deposit`` of 157,464 particles at 128^3 on
-   the card bitwise equal to the CPU run, given the same h.
+   512, method="sph")``: launch counts (K1 125, K6 1 ``norm`` and 125
+   ``rows``); ``check_conservation`` (mass within 1e-6); three timed runs
+   and the stages of a fourth.
+   ``sph_interp_to_field(clamp_support=False)``: its levels, launches
+   (K1 and K6 once a level), mass within 1e-6.  ``sph_deposit`` of
+   157,464 particles at 128^3 on the card (1 + 125 K6 launches) bitwise
+   equal to the CPU run, given the same h.  K6's entry in the kernels
+   line: these three runs' launches by path, and the 512^3 grid's
+   largest difference to the torch weight route's.
 12. io: ``save_field`` / ``load_field`` of that 128^3 field and a
    ``BrickStore`` (nbrick 2, n_brick 64, npz) of its bricks written and
    read back on the card, bitwise; the store's streaming fold against
@@ -255,6 +263,7 @@ the spans, and its bytes on x, y and z of each span row.  Then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; refuses to run without one.
 """
+import hashlib
 import json
 import math
 import os
@@ -288,6 +297,10 @@ SPH_LOG_SIGMA = 0.7      # density exp(0.7 z): h over ~0.4-5 cells
 SPH_PSUM_RTOL = 1e-5     # SPH momentum Psum against the float64 chain
 SPH_GRID_RTOL = 1e-4     # momentum grid max |err| over its max
 SPH_MASS_RTOL = 1e-6     # grid mass against the particles' (float64 sums)
+K6_AXIS_OPS = 9          # FP32 operations of one per-axis squared distance
+                         # (+d, +0.5, *cell, -, /box, round, *box, -, ^2)
+K6_EVAL_OPS = 18         # of one evaluation once its axis terms are made
+                         # (the z sum, sqrt, q, spline 14, accumulate)
 # Share of cells whose NN is misassigned.  The descent's own class at
 # this occupancy (0.075 particles per cell) is ~2.3e-2: the finest level
 # pre-merges the rank-0 seeds (nn.py _PREMERGE_MIN), which a CPU run of
@@ -1029,13 +1042,77 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
         rec["checked"] += 1
 
     shifted_before = dict(sorted_scatter.SHIFTED_LAUNCHES)
+    k6_before = dict(sph.SPH_WEIGHT_LAUNCHES)
     with _Capture(sorted_scatter, "deposit_sorted", check=k1_check,
-                  record=False, before=k1_before):
+                  record=False, before=k1_before), \
+            _Capture(sph, "_k6_offset_rows") as k6_rows:
         grid = sph.sph_deposit(p.pos, values, h, n_grid, box,
                                s_max=SPH_S_MAX)
     torch.cuda.synchronize()
     n_rows, n_cells_path = (sorted_scatter.SHIFTED_LAUNCHES[k]
                             - shifted_before[k] for k in ("rows", "cells"))
+    k6_n = {k: sph.SPH_WEIGHT_LAUNCHES[k] - k6_before[k]
+            for k in ("norm", "rows")}
+    _check(k6_n == {"norm": 1, "rows": 125}, f"SPH's K6 launches {k6_n}, "
+           f"not 1 norm and 125 rows")
+    # the torch weight route forced on the card: the same grid bit for bit
+    sph_k6 = sph._deposit_k6
+    sph._deposit_k6 = sph._deposit_torch
+    try:
+        grid_t = sph.sph_deposit(p.pos, values, h, n_grid, box,
+                                 s_max=SPH_S_MAX)
+    finally:
+        sph._deposit_k6 = sph_k6
+    hashes = [hashlib.sha1(g.cpu().numpy().tobytes()).hexdigest()[:16]
+              for g in (grid, grid_t)]
+    same_t = torch.equal(grid.view(torch.int32), grid_t.view(torch.int32))
+    k6_err = float((grid - grid_t).abs().max())
+    print(f"[sph] K6 launches {k6_n}; the grid (sha1 {hashes[0]}) bitwise "
+          f"equal to the torch weight route's on the card (sha1 "
+          f"{hashes[1]}): {same_t}", flush=True)
+    _check(same_t, "the SPH grid of K6 differs from the torch weight "
+           "route's")
+    del grid_t
+    # K6 timed: the weight sums, and one offset's rows
+    (spos, sh, wsum, svals6, d6), geom = k6_rows.calls[0][0], \
+        dict(k6_rows.calls[0][1])
+    rows6 = geom.pop("out")
+    del k6_rows
+    n_p = sh.shape[0]
+    norm_ms = _time_ms(torch, lambda: sph._k6_weight_sum(
+        spos, sh, SPH_S_MAX, **geom), 3)
+    rows_ms = _time_ms(torch, lambda: sph._k6_offset_rows(
+        spos, sh, wsum, svals6, d6, out=rows6, **geom), 10)
+    # the plain version (the torch route's arithmetic) on the card
+    sq = sph._axis_sq(spos, geom["cell"], geom["box_size"], SPH_S_MAX,
+                      geom["periodic"])
+    norm_plain_ms = _time_ms(torch, lambda: sph._weight_sum(
+        sph._axis_sq(spos, geom["cell"], geom["box_size"], SPH_S_MAX,
+                     geom["periodic"]), sh, SPH_S_MAX, geom["kernel"]), 3)
+    degenerate = wsum <= 0.0
+    wnorm = torch.where(degenerate, 1.0, wsum)
+
+    def rows_plain():
+        w = sph._norm_weight(sq, sh, wnorm, degenerate, d6, geom["kernel"])
+        return (svals6 * w[:, None]).contiguous()
+
+    rows_plain_ms = _time_ms(torch, rows_plain, 10)
+    side = 2 * SPH_S_MAX + 1
+    # a row: 3 side axis terms, side^2 (x, y) sums, side^3 evaluations
+    row_ops = 3 * side * K6_AXIS_OPS + side**2 + side**3 * K6_EVAL_OPS
+    norm_bound = _bound(_nbytes(spos, sh, wsum), n_p * row_ops)
+    rows_bound = _bound(_nbytes(spos, sh, wsum, svals6, rows6), 0)
+    k6_rec = {"ms": rows_ms, "plain_ms": rows_plain_ms, "bound": rows_bound,
+              "norm_ms": norm_ms, "norm_plain_ms": norm_plain_ms,
+              "norm_bound": norm_bound, "err": k6_err}
+    print(f"[K6] weight sums of {n_p} rows over {(2 * SPH_S_MAX + 1) ** 3} "
+          f"offsets {norm_ms:.3f} ms (plain {norm_plain_ms:.3f} ms), bound "
+          f"{norm_bound[0]:.3f} ms ({norm_bound[1]}, {row_ops} a row); "
+          f"one offset's rows "
+          f"({tuple(svals6.shape)}) {rows_ms:.3f} ms (plain "
+          f"{rows_plain_ms:.3f} ms with the axis terms made once), bound "
+          f"{rows_bound[0]:.3f} ms ({rows_bound[1]}) on {smi}", flush=True)
+    del spos, sh, wsum, svals6, rows6, sq, degenerate, wnorm
     _check(n_rows == 125 and n_cells_path == 0,
            f"SPH's shifted K1 calls: {n_rows} wrote whole z-rows and "
            f"{n_cells_path} cell by cell, not 125 and 0")
@@ -1088,17 +1165,24 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     chain_s = time.perf_counter() - t0
 
     # the main path's run, counts zeroed (also the warm-up)
+    n_off = (2 * SPH_S_MAX + 1) ** 3
     for mod in kernel_modules:
         mod.LAUNCHES = 0
+    sph.SPH_WEIGHT_LAUNCHES.update(norm=0, rows=0)
     torch.cuda.synchronize()
     spec_v = vt.power_spectrum(p, n_grid, method="sph")
     torch.cuda.synchronize()
     launches = sorted_scatter.LAUNCHES
     others = sum(m.LAUNCHES for m in kernel_modules) - launches
+    k6_paths = {"sph": dict(sph.SPH_WEIGHT_LAUNCHES)}
     print(f"[sph] power_spectrum(particles, {n_grid}, method='sph') "
-          f"launches: K1 {launches}, K2-K4 {others}", flush=True)
-    _check(launches == (2 * SPH_S_MAX + 1) ** 3 and others == 0,
+          f"launches: K1 {launches}, K2-K4 {others}, K6 {k6_paths['sph']}",
+          flush=True)
+    _check(launches == n_off and others == 0,
            "the SPH run did not launch K1 once an offset")
+    _check(k6_paths["sph"] == {"norm": 1, "rows": n_off},
+           f"the SPH run's K6 launches {k6_paths['sph']}, not 1 norm and "
+           f"{n_off} rows")
     field = vt.deposit(p, n_grid, method="sph")
     spec_p = vt.spectrum_from_field(field, quantity="momentum")
     for spec, tag in ((spec_v, "velocity"), (spec_p, "momentum")):
@@ -1136,8 +1220,8 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
           f"{times[1]:.4f} s, spread {times[2] - times[0]:.4f} s on {smi}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    targets = [(sph, "_sorted_rows"), (sph, "_axis_sq"),
-               (sph, "_weight_sum"), (sph, "deposit_offsets_rolled"),
+    targets = [(sph, "_sorted_rows"), (sph, "_k6_weight_sum"),
+               (sph, "_k6_offset_rows"),
                (sorted_scatter, "deposit_sorted"),
                (power_mod, "vector_power_rfft"),
                (power_mod, "shell_bin_rfft")]
@@ -1151,10 +1235,8 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     for name, s in st.times:
         sec[name] = sec.get(name, 0.0) + s
     stages = {"sort": sec["_sorted_rows"],
-              "norm pass (axis terms + 125 weights)": sec["_axis_sq"]
-              + sec["_weight_sum"],
-              "weights and svals * w": sec["deposit_offsets_rolled"]
-              - sec["deposit_sorted"],
+              "K6 weight sums": sec["_k6_weight_sum"],
+              "K6 rows (125 launches)": sec["_k6_offset_rows"],
               f"K1 ({launches} launches)": sec["deposit_sorted"],
               "FFT": sec["vector_power_rfft"],
               "binning": sec["shell_bin_rfft"]}
@@ -1171,15 +1253,20 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
                   check=lambda a, kw, out: levels.append(kw["levels"]),
                   record=False):
         sorted_scatter.LAUNCHES = 0
+        sph.SPH_WEIGHT_LAUNCHES.update(norm=0, rows=0)
         field = sph.sph_interp_to_field(p, n_grid, clamp_support=False)
         torch.cuda.synchronize()
     multi_launches = sorted_scatter.LAUNCHES
+    k6_paths["multires"] = dict(sph.SPH_WEIGHT_LAUNCHES)
     m_rel = abs(float(field.mass.double().sum()) - m_true) / m_true
     print(f"[sph] sph_interp_to_field(clamp_support=False): {levels[0]} "
-          f"levels, K1 launches {multi_launches}; mass rel err {m_rel:.3e} "
+          f"levels, K1 launches {multi_launches}, K6 "
+          f"{k6_paths['multires']}; mass rel err {m_rel:.3e} "
           f"(gate {SPH_MASS_RTOL})", flush=True)
-    _check(multi_launches == levels[0] * (2 * SPH_S_MAX + 1) ** 3,
-           "multires K1 launches")
+    _check(multi_launches == levels[0] * n_off, "multires K1 launches")
+    _check(k6_paths["multires"] == {"norm": levels[0],
+                                    "rows": levels[0] * n_off},
+           f"multires K6 launches {k6_paths['multires']}")
     _check(m_rel <= SPH_MASS_RTOL, f"multires mass rel err {m_rel:.3e}")
     del field, p, values, h
     torch.cuda.empty_cache()
@@ -1196,8 +1283,10 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
     h_s = small.smoothing_length()
     vals_s = torch.cat([small.vel * small.mass[:, None],
                         small.mass[:, None]], dim=1)
+    sph.SPH_WEIGHT_LAUNCHES.update(norm=0, rows=0)
     got = sph.sph_deposit(small.pos, vals_s, h_s, N_SMALL, BOX,
                           s_max=SPH_S_MAX)
+    k6_paths["check_128"] = dict(sph.SPH_WEIGHT_LAUNCHES)
     ref = sph.sph_deposit(small.pos.cpu(), vals_s.cpu(), h_s.cpu(), N_SMALL,
                           BOX, s_max=SPH_S_MAX)
     same = torch.equal(got.cpu(), ref)
@@ -1205,7 +1294,10 @@ def _sph_phase(torch, vt, particles, n_grid, nsamp_host, smi, psum_err,
           f"{SPH_S_MAX}, given h: the card run bitwise equal to the CPU run: "
           f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
     _check(same, "the 128^3 SPH deposit on the card differs from the CPU")
-    rec["launches"], rec["k1"] = launches, k1_rec
+    _check(k6_paths["check_128"] == {"norm": 1, "rows": n_off},
+           f"the 128^3 deposit's K6 launches {k6_paths['check_128']}")
+    k6_rec["launches_by_path"] = k6_paths
+    rec["launches"], rec["k1"], rec["k6"] = launches, k1_rec, k6_rec
     return rec, vt.deposit(small, N_SMALL, method="sph")
 
 
@@ -2910,7 +3002,7 @@ def main():
     # ---- 2. build --------------------------------------------------
     t0 = time.perf_counter()
     names = ("sorted_scatter", "nn_sweep", "nn_index_sweep", "window_sweep",
-             "shell_bin")
+             "shell_bin", "sph_weights")
     logs = _build_all(names)
     print(f"[build] {len(names)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3894,6 +3986,17 @@ def main():
     k5_entry["err_is"] = "widest relative Psum gap to the one-hot version"
     k5_entry["launches_by_path"] = k5_paths
     k5_entry["calls"] = k5_rows
+    k6_paths = sph_rec["k6"]["launches_by_path"]
+    k6_entry = entry(
+        "sph_weights", "none: the elementwise SPH weight work the JAX "
+        "package leaves to XLA, vpower_tpu/deposit/sph.py:_sph_deposit_mxu",
+        sum(sum(n.values()) for n in k6_paths.values()),
+        sph_rec["k6"]["err"], sph_rec["k6"])
+    k6_entry["err_is"] = ("largest |difference| of the 512^3 SPH grid to "
+                          "the torch weight route's on the card")
+    k6_entry["launches_by_path"] = k6_paths
+    k6_entry["norm"] = {k: sph_rec["k6"][k] for k in
+                        ("norm_ms", "norm_plain_ms", "norm_bound")}
     kernels = [
         k1_entry,
         k2_entry,
@@ -3901,6 +4004,7 @@ def main():
               i_launches["nn_index_sweep"], k3["err"], k3),
         k4_entry,
         k5_entry,
+        k6_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -208,8 +208,9 @@ def snake_offsets(axis_vals: Sequence[int]):
 
 
 def deposit_offsets_rolled(sids: torch.Tensor, svals: torch.Tensor,
-                           weight_fn: Callable, axis_vals: Sequence[int],
-                           n_grid: int) -> torch.Tensor:
+                           weight_fn: Optional[Callable],
+                           axis_vals: Sequence[int], n_grid: int, *,
+                           rows_fn: Optional[Callable] = None) -> torch.Tensor:
     """``sum_d roll(deposit(weight_fn(d) * svals), d)`` over the offset
     lattice ``axis_vals^3``: (C, n, n, n), counterpart of the JAX
     ``deposit_offsets_rolled``.  One K1 launch an offset, in snake order:
@@ -220,10 +221,16 @@ def deposit_offsets_rolled(sids: torch.Tensor, svals: torch.Tensor,
     keeps every grid bit for bit what a rotating frame of one-axis
     ``torch.roll`` steps gives (the CPU tests hold it to one).
     ``weight_fn(d)`` gives the (N,) weights of the sorted rows at offset
-    ``d``."""
+    ``d``, multiplied into ``svals`` here; or, with ``weight_fn`` None,
+    ``rows_fn(d)`` gives offset ``d``'s weighted (N, C) rows ready-made
+    (contiguous float32), which K1 has read before the next call."""
+    if (weight_fn is None) == (rows_fn is None):
+        raise ValueError("give one of weight_fn and rows_fn")
+    if rows_fn is None:
+        def rows_fn(d):
+            return (svals * weight_fn(d)[:, None]).contiguous()
     grid = None
     for d in snake_offsets(axis_vals):
-        w = weight_fn(d)
-        grid = deposit_sorted(sids, (svals * w[:, None]).contiguous(),
-                              n_grid**3, carry=grid, shift=d)
+        grid = deposit_sorted(sids, rows_fn(d), n_grid**3, carry=grid,
+                              shift=d)
     return grid.reshape(svals.shape[1], n_grid, n_grid, n_grid)

@@ -21,13 +21,24 @@ correctly rounded tensor operation (no fused multiply-add; the square
 root through :func:`_sqrt`), so a CUDA run equals a CPU run bit for bit
 given the same ``h``.
 
+On a CUDA tensor the weights are the hand-written kernel K6
+(``csrc/sph_weights.cu``, :func:`_deposit_k6`): one launch sums each
+row's weights, then one launch an offset writes that offset's weighted
+rows into one buffer that K1 reads.  On a CPU tensor they are the torch
+code (:func:`_deposit_torch`, K6's plain version), which hands
+``deposit_offsets_rolled`` a weight function; the two agree bit for bit.
+Any other device raises.  ``SPH_WEIGHT_LAUNCHES`` counts K6's launches:
+``norm`` (one a deposit) and ``rows`` (one an offset).
+
 Spans (``utils/profiling.py:span``): the sort runs in
 ``vpower.deposit.sort``; the normalization pass, and each offset's
-weights, in ``vpower.sph.weights``, whose first span counts the clamped
-(``clamped``) and the degenerate (``degenerate``) particles while a
-profiler records.
+weights and weighted rows, in ``vpower.sph.weights``, whose first span
+counts the clamped (``clamped``) and the degenerate (``degenerate``)
+particles while a profiler records.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,7 +53,12 @@ __all__ = [
     "sph_deposit_multires",
     "sph_interp_to_field",
     "kernel_weight",
+    "SPH_WEIGHT_LAUNCHES",
 ]
+
+# K6's launches: the normalization pass, and one an offset's rows
+SPH_WEIGHT_LAUNCHES = {"norm": 0, "rows": 0}
+_KERNEL_IDS = {"cubic_spline": 0, "sphere": 1}  # kSphere of the source
 
 
 def kernel_weight(q: torch.Tensor, kind: str) -> torch.Tensor:
@@ -119,6 +135,126 @@ def _weight_sum(sq, sh, s_max: int, kernel: str) -> torch.Tensor:
     return wsum
 
 
+def _norm_weight(sq, sh, wsum, degenerate, d, kernel: str) -> torch.Tensor:
+    """Normalized weight of every sorted row at offset ``d`` (K6's plain
+    version of a row's weight): :func:`_offset_weight` over ``wsum`` (the
+    weight sums with the degenerate rows' set to 1), then the degenerate
+    rule: weight 1 at offset (0, 0, 0) where ``degenerate``, else 0."""
+    w = _offset_weight(sq, sh, d, kernel) / wsum
+    return torch.where(degenerate, 1.0 if d == (0, 0, 0) else 0.0, w)
+
+
+def _k6(entry: str, argtypes, *args, device) -> None:
+    """Launch K6's C entry ``entry`` on ``device``'s current stream."""
+    from .. import _build
+
+    fn = getattr(_build.load("sph_weights"), entry)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sph_weights kernel launch failed: "
+                           f"cudaError_t {rc}")
+
+
+def _k6_check(kernel: str, *expected) -> None:
+    """Raise unless each ``(tensor, shape)`` is a contiguous float32
+    tensor of that shape on the first one's CUDA device, and ``kernel``
+    is one K6 computes."""
+    dev = expected[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"K6 runs on cuda tensors, not {dev}")
+    if kernel not in _KERNEL_IDS:
+        raise ValueError(f"Unknown kernel {kernel!r}")
+    for t, shape in expected:
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"K6 takes contiguous float32 {shape} on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+
+
+def _k6_weight_sum(spos, sh, s_max: int, cell: float, box_size: float,
+                   kernel: str, periodic: bool) -> torch.Tensor:
+    """K6's normalization pass: each sorted row's kernel-weight sum over
+    the offset cube, as :func:`_weight_sum` of :func:`_axis_sq` forms it,
+    before the degenerate rule: (N,) float32."""
+    n = sh.shape[0]
+    _k6_check(kernel, (spos, (n, 3)), (sh, (n,)))
+    wsum = torch.empty_like(sh)
+    _k6("sph_weight_sum",
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_int],
+        spos.data_ptr(), sh.data_ptr(), wsum.data_ptr(), sh.shape[0], s_max,
+        cell, box_size, int(periodic), _KERNEL_IDS[kernel],
+        device=spos.device)
+    SPH_WEIGHT_LAUNCHES["norm"] += 1
+    return wsum
+
+
+def _k6_offset_rows(spos, sh, wsum, svals, d, cell: float, box_size: float,
+                    kernel: str, periodic: bool, out: torch.Tensor):
+    """K6's rows of offset ``d`` written into ``out`` (N, C): ``svals``
+    times each row's normalized weight at ``d``, the degenerate rule
+    applied (weight 1 at (0, 0, 0) where ``wsum <= 0``, else 0)."""
+    n, rows = sh.shape[0], (sh.shape[0], svals.shape[-1])
+    _k6_check(kernel, (spos, (n, 3)), (sh, (n,)), (wsum, (n,)),
+              (svals, rows), (out, rows))
+    _k6("sph_offset_rows",
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2,
+        spos.data_ptr(), sh.data_ptr(), wsum.data_ptr(), svals.data_ptr(),
+        out.data_ptr(), svals.shape[0], svals.shape[1], *d, cell, box_size,
+        int(periodic), _KERNEL_IDS[kernel], device=spos.device)
+    SPH_WEIGHT_LAUNCHES["rows"] += 1
+    return out
+
+
+def _deposit_torch(sids, svals, spos, sh, n_grid, s_max, clamped, *, cell,
+                   box_size, kernel, periodic):
+    """The weights in torch and the offsets' deposits (the CPU route, and
+    K6's plain version): the per-axis distances once, the weight sums,
+    then each offset's normalized weights handed to
+    ``deposit_offsets_rolled``.  ``clamped()`` gives the count of clamped
+    particles for the span's counter."""
+    with span("vpower.sph.weights") as rec:
+        sq = _axis_sq(spos, cell, box_size, s_max, periodic)
+        wsum = _weight_sum(sq, sh, s_max, kernel)
+        # particles whose kernel misses every sampled centre (h much
+        # smaller than a cell) deposit NGP-style into their own cell
+        degenerate = wsum <= 0.0
+        wsum = torch.where(degenerate, 1.0, wsum)
+        if rec is not None:
+            rec.count(clamped=clamped(), degenerate=degenerate.sum())
+
+    def norm_weight(d):
+        with span("vpower.sph.weights"):
+            return _norm_weight(sq, sh, wsum, degenerate, d, kernel)
+
+    return deposit_offsets_rolled(sids, svals, norm_weight,
+                                  range(-s_max, s_max + 1), n_grid)
+
+
+def _deposit_k6(sids, svals, spos, sh, n_grid, s_max, clamped, **geom):
+    """The same on the card with K6: the weight sums in one launch, then
+    one launch an offset writing its weighted rows into one (N, C) buffer
+    that K1 reads before the next offset's launch (one stream)."""
+    with span("vpower.sph.weights") as rec:
+        wsum = _k6_weight_sum(spos, sh, s_max, **geom)
+        if rec is not None:
+            rec.count(clamped=clamped(), degenerate=(wsum <= 0.0).sum())
+    rows = torch.empty_like(svals)
+
+    def offset_rows(d):
+        with span("vpower.sph.weights"):
+            return _k6_offset_rows(spos, sh, wsum, svals, d, out=rows, **geom)
+
+    return deposit_offsets_rolled(sids, svals, None, range(-s_max, s_max + 1),
+                                  n_grid, rows_fn=offset_rows)
+
+
 def sph_deposit(
     pos: torch.Tensor,
     values: torch.Tensor,
@@ -134,6 +270,10 @@ def sph_deposit(
     to 1 over the sampled footprint, so column sums are conserved.
     ``periodic=False`` drops the minimum image from the distances; the
     offsets' shifts still wrap, as the JAX package's rolls do."""
+    route = {"cpu": _deposit_torch, "cuda": _deposit_k6}.get(pos.device.type)
+    if route is None:
+        raise ValueError(f"sph_deposit runs on cpu or cuda tensors, not "
+                         f"{pos.device}")
     cell = box_size / n_grid
     pos = torch.remainder(pos, box_size)
     # support clamped to the static footprint (reference analog: the
@@ -143,25 +283,9 @@ def sph_deposit(
     with span("vpower.deposit.sort"):
         sids, svals, spos, sh = _sorted_rows(pos, values, h_eff, n_grid,
                                              cell)
-    with span("vpower.sph.weights") as rec:
-        sq = _axis_sq(spos, cell, box_size, s_max, periodic)
-        wsum = _weight_sum(sq, sh, s_max, kernel)
-        # particles whose kernel misses every sampled centre (h much
-        # smaller than a cell) deposit NGP-style into their own cell
-        degenerate = wsum <= 0.0
-        wsum = torch.where(degenerate, 1.0, wsum)
-        if rec is not None:
-            rec.count(clamped=((h < h_lo) | (h > h_hi)).sum(),
-                      degenerate=degenerate.sum())
-
-    def norm_weight(d):
-        with span("vpower.sph.weights"):
-            w = _offset_weight(sq, sh, d, kernel) / wsum
-            return torch.where(degenerate, 1.0 if d == (0, 0, 0) else 0.0,
-                               w)
-
-    return deposit_offsets_rolled(sids, svals, norm_weight,
-                                  range(-s_max, s_max + 1), n_grid)
+    return route(sids, svals, spos, sh, n_grid, s_max,
+                 lambda: ((h < h_lo) | (h > h_hi)).sum(), cell=cell,
+                 box_size=box_size, kernel=kernel, periodic=periodic)
 
 
 def _upsample_add(fine: torch.Tensor, coarse: torch.Tensor,
