@@ -38,6 +38,12 @@ it runs the plain version :func:`window_pass_plain`, which computes the
 same float arithmetic, so the two agree bit for bit.  ``LAUNCHES``
 counts kernel launches.  The host decisions (h1, whether tier 2 and
 pass C run, their row counts) are each one device-to-host read.
+Everything after the descent runs inside the span ``vpower.nn.window``,
+each pass inside ``vpower.nn.window.pass``, whose ``args`` give the
+tier and the host decision that ran it: ``1 h1=<h1>``,
+``2 tiles=<tiles flagged> rows=<rows near them>``, ``C tiles=<tiles>``.
+While a profiler records, the outer span counts the span rows the
+passes scan (``rows``, ``utils/profiling.py:counter_report``).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.arith import _f32
+from ..utils.profiling import span
 
 __all__ = ["nn_window_gather", "nn_exact_assign", "window_pass",
            "window_pass_plain", "LAUNCHES"]
@@ -537,55 +544,65 @@ def nn_window_gather(pos: torch.Tensor, vals: torch.Tensor, n_grid: int,
     _, occ, d2_seed = nn_gather_grid(
         pos, pos.new_zeros((pos.shape[0], 0)), n_grid, box_size,
         periodic=periodic, return_d2=True, valid=valid)
-    pos_c, d2_c = _to_cells(pos, d2_seed, n_grid, box_size)
-    del d2_seed
-    h_tile = _h_required(d2_c, n_grid, zc)
-    h1 = _choose_h1(h_tile)
+    # the plan and the passes: the span counts the span rows the passes
+    # scan (0-d device tensors, no host sync); each pass's span names its
+    # tier and the host ints that decided it
+    with span("vpower.nn.window") as ws:
+        pos_c, d2_c = _to_cells(pos, d2_seed, n_grid, box_size)
+        del d2_seed
+        h_tile = _h_required(d2_c, n_grid, zc)
+        h1 = _choose_h1(h_tile)
 
-    def run_pass(s0, s1, rows, state, wrap):
-        return window_pass(s0, s1, rows, state, n_grid=n_grid, zc=zc,
-                           n_pay=n_pay, wrap=wrap)
+        def run_pass(tier, s0, s1, rows, state, wrap):
+            with span("vpower.nn.window.pass", tier):
+                if ws is not None:
+                    ws.count(rows=(s1.long() - s0.long()).sum())
+                return window_pass(s0, s1, rows, state, n_grid=n_grid,
+                                   zc=zc, n_pay=n_pay, wrap=wrap)
 
-    # wrap-free rows need unambiguous image inference: >= 3 tiles/axis
-    kernel_wrap = periodic and min(nt) < 3
+        # wrap-free rows need unambiguous image inference: >= 3 tiles/axis
+        kernel_wrap = periodic and min(nt) < 3
 
-    n_rows1 = _round_rows(_tier1_count(pos_c, n_grid, zc, h1, periodic,
-                                       valid_rows=valid))
-    rows1, s0, s1 = _tier1_build(pos_c, vals, n_grid, zc, h1, periodic,
-                                 n_rows1,
-                                 apply_shift=periodic and not kernel_wrap,
-                                 valid_rows=valid)
-    # seed state: zero payload and the nudged bound, which the true NN
-    # beats with strict < at every cell
-    state = torch.cat([
-        d2_c.new_zeros((n_pay,) + (n_grid,) * 3),
-        _seed_bound(d2_c, n_grid)[None],
-    ])
-    del d2_c
-    state = run_pass(s0, s1, rows1, state, kernel_wrap)
-    del rows1
+        n_rows1 = _round_rows(_tier1_count(pos_c, n_grid, zc, h1, periodic,
+                                           valid_rows=valid))
+        rows1, s0, s1 = _tier1_build(pos_c, vals, n_grid, zc, h1, periodic,
+                                     n_rows1,
+                                     apply_shift=periodic and not kernel_wrap,
+                                     valid_rows=valid)
+        # seed state: zero payload and the nudged bound, which the true NN
+        # beats with strict < at every cell
+        state = torch.cat([
+            d2_c.new_zeros((n_pay,) + (n_grid,) * 3),
+            _seed_bound(d2_c, n_grid)[None],
+        ])
+        del d2_c
+        state = run_pass(f"1 h1={h1}", s0, s1, rows1, state, kernel_wrap)
+        del rows1
 
-    n_flag = int(((h_tile > h1) & (h_tile <= _H2_CAP)).sum())
-    if n_flag > 0:
-        near = _tier2_near(pos_c, h_tile, h1, n_grid, zc)
-        if valid is not None:
-            near = near & valid
-        n_near = int(near.sum())
-        if n_near > 0:
-            n_sub = min(_round_rows(n_near), pos.shape[0])
-            sel, selv = _compact_mask(near, n_sub)
-            # capacity: at worst 27 replicas of the compacted subset
-            rows2, s0b, s1b = _tier2_build(
-                pos_c, vals, sel, selv, h_tile, h1, n_grid, zc, periodic,
-                _round_rows(27 * n_sub))
-            state = run_pass(s0b, s1b, rows2, state, kernel_wrap)
-            del rows2
+        n_flag = int(((h_tile > h1) & (h_tile <= _H2_CAP)).sum())
+        if n_flag > 0:
+            near = _tier2_near(pos_c, h_tile, h1, n_grid, zc)
+            if valid is not None:
+                near = near & valid
+            n_near = int(near.sum())
+            if n_near > 0:
+                n_sub = min(_round_rows(n_near), pos.shape[0])
+                sel, selv = _compact_mask(near, n_sub)
+                # capacity: at worst 27 replicas of the compacted subset
+                rows2, s0b, s1b = _tier2_build(
+                    pos_c, vals, sel, selv, h_tile, h1, n_grid, zc, periodic,
+                    _round_rows(27 * n_sub))
+                state = run_pass(f"2 tiles={n_flag} rows={n_near}", s0b,
+                                 s1b, rows2, state, kernel_wrap)
+                del rows2
 
-    if int((h_tile > _H2_CAP).sum()) > 0:
-        rows3, s0c, s1c = _passc_build(pos_c, vals, h_tile, n_grid, zc,
-                                       _round_rows(pos.shape[0]),
-                                       valid_rows=valid)
-        state = run_pass(s0c, s1c, rows3, state, periodic)
+        n_passc = int((h_tile > _H2_CAP).sum())
+        if n_passc > 0:
+            rows3, s0c, s1c = _passc_build(pos_c, vals, h_tile, n_grid, zc,
+                                           _round_rows(pos.shape[0]),
+                                           valid_rows=valid)
+            state = run_pass(f"C tiles={n_passc}", s0c, s1c, rows3, state,
+                             periodic)
 
     return state[:n_pay], state[n_pay] * _f32(cell * cell), occ
 

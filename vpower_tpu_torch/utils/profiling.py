@@ -20,8 +20,12 @@ named ``vpower.<layer>[.<stage>]``: the entries
 with ``vpower.deposit.sort``, the NN
 descent's ``vpower.nn.seeds``, ``vpower.nn.pool``,
 ``vpower.nn.coarsest`` and ``vpower.nn.sweep`` (one a level, the level
-size in ``args``), the SPH deposit's ``vpower.sph.weights`` (its
-normalization pass, then one an offset), ``vpower.fft``,
+size in ``args``), the exact window sweep's ``vpower.nn.window`` (the
+plan and passes after the descent) with one ``vpower.nn.window.pass``
+a pass (its tier, ``1``, ``2`` or ``C``, and the host ints that decided
+it in ``args``), the SPH
+deposit's ``vpower.sph.weights`` (its normalization pass, then one an
+offset), ``vpower.fft``,
 ``vpower.binning`` with
 ``vpower.binning.lattice``, ``vpower.streamed.block`` (the block index
 in ``args``) and ``vpower.mesh.bucketing``.  With no profiler
